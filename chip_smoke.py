@@ -7,14 +7,25 @@ Phases, in order; any failure exits non-zero:
   2. build   — compiles the CUDA kernels (nvcc, sm_90a) and the native host
                libraries (g++) from the sources in this checkout, in parallel
   3. kernels — at the headline batch (20-cluster model seed 0, 2048 ligands
-               x 4 conformers seed 1) holds each hand kernel (K1, K4, K5)
-               against its plain torch version on the card and times both
-  4. paths   — the --library CLI route on 8 x 2048 ligands (K1), and the
+               x 4 conformers seed 1) holds K1, K3, K4 and K5 against their
+               plain torch versions on the card and times both; K3 on the
+               batch's v2 store arrays
+  4. paths   — the --library CLI route on 4 x 2048 ligands (K1), and the
                native_pack=False (K4) and fused=False (K5) screener paths;
                each with the launch counts reset just before and read just
                after; every score against the plain-torch reference engine
   5. -d      — the CLI on ~200 random .sdf/.mol2 files, every score against
                the exact host GraphMatcher
+  6. stored  — the stored route on phase 4's library: prepack the default
+               store (v3, leaf buckets, sparse wire) of its 4 batches and
+               screen it with --library_tiles (K2 + leaf chain), the
+               same with --tiles_version 2 on 2 batches (K3), and a v3
+               store without leaves on 1 batch through score_stored (K2 +
+               compaction on the device); each route's launch counts reset
+               just before and read just after, every score against the
+               reference engine; K2 held against its plain version and
+               timed on the default store's first batch, which is the
+               headline batch at the shape the store pins for every batch
 Then prints the {"kernels": [...]} line, the nvidia-smi name/power line, and
 last {"ok": true, "device": {...}}.
 """
@@ -30,13 +41,14 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 RTOL, ATOL = 2e-5, 1e-4  # repo score tolerance
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 F32_OPS_PER_S = 67e12  # H100 SXM published f32 rate outside the tensor cores
 WORK = Path(__file__).resolve().parent / ".smoke_work"
-N_BATCH, N_BATCHES, N_FILES = 2048, 8, 200
+N_BATCH, N_BATCHES, N_FILES = 2048, 4, 200
 
 
 def log(msg: str) -> None:
@@ -57,7 +69,7 @@ def phase_build() -> float:
 
     t0 = time.perf_counter()
     jobs = [screen_cuda.load_library, native.get_pack_tiled, native.get_block_packer,
-            native.get_prep_args, native.get_match_dfs]
+            native.get_prep_args, native.get_match_dfs, native.get_tile_dt]
     with ThreadPoolExecutor(len(jobs)) as pool:
         for f in [pool.submit(j) for j in jobs]:
             f.result()
@@ -90,21 +102,25 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> tuple[float, in
     return err, mism
 
 
-def ops_per_row(c: int, depth1: int, depth2: int, fused: bool) -> int:
-    """f32 operations per row as the kernels do them (exp and sqrt as one):
-    distance 9 per conformer, 9 per (model pair, conformer) in the Gaussian
-    phase, and for the fused kernels one add per scan step and stacked
-    value plus 3 per conformer in the block and pair tails."""
-    ops = 9 * c + 9 * 8 * c
-    if fused:
-        ops += 2 * c * (depth1 + depth2) + 3 * c
+def f32_ops(c: int, rows: int, entries: int, distance: bool, depths: tuple) -> int:
+    """f32 operations the kernels must do (exp and sqrt as one): the
+    distance, 9 per conformer of each row where it is rebuilt; 9 per
+    (valid Gaussian entry, conformer); and where there are scans, one add
+    per scan step and stacked value plus 3 per conformer in the tails.
+    `entries` counts this run's Gaussian entries with weight > 0."""
+    ops = 9 * c * entries + (9 * c * rows if distance else 0)
+    if depths:
+        ops += rows * (2 * c * sum(depths) + 3 * c)
     return ops
 
 
-def kernel_entry(name, source_line, fn, plain, inputs, out, rows, c, depths, fused, tiles):
+def valid_entries(weights: torch.Tensor) -> int:
+    return int((weights > 0).sum())
+
+
+def kernel_entry(name, source_line, fn, plain, inputs, out, ops, tiles):
     err, mism = compare(name, out, plain())
     nbytes = sum(t.numel() * t.element_size() for t in inputs) + out.numel() * 4
-    ops = rows * ops_per_row(c, *depths, fused)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     entry = dict(
         name=name, route="cuda", source="pharmaconet_tpu_torch/csrc/screen_fused.cu",
@@ -121,6 +137,7 @@ def kernel_entry(name, source_line, fn, plain, inputs, out, rows, c, depths, fus
 def phase_kernels(pm, ligands, dev) -> dict:
     from pharmaconet_tpu_torch.ops import screen_cuda, screen_ref
     from pharmaconet_tpu_torch.scoring.batch_screen import BatchScreener, build_batch
+    from pharmaconet_tpu_torch.scoring.screen_tiles import tile_distances
     from pharmaconet_tpu_torch.scoring.tiled_pack import build_tiled_batch
 
     def cuda(a):
@@ -136,7 +153,17 @@ def phase_kernels(pm, ligands, dev) -> dict:
     out["score_tiles_fused_rows"] = kernel_entry(
         "score_tiles_fused_rows", 463, k1,
         lambda: screen_ref.score_tiles_fused_rows(*k1_in, *d),
-        k1_in, k1(), tiles * 1024, c, d, True, tiles)
+        k1_in, k1(), f32_ops(c, tiles * 1024, valid_entries(k1_in[2][:, 2]), True, d), tiles)
+
+    # K3 on the batch's v2 store arrays (the tiles that hold rows, as the
+    # stored route sends them) and their prepack-time distances
+    k3_in = [cuda(tile_distances(tb.pos_blocks[:used], tb.uv[:used])),
+             cuda(tb.gtab[:used]), cuda(tb.aux[:used])]
+    tiles3 = k3_in[0].shape[0]
+    k3 = lambda: screen_cuda.score_tiles_fused_dt_rows(*k3_in, *d)  # noqa: E731
+    out["score_tiles_fused_dt"] = kernel_entry(
+        "score_tiles_fused_dt", 262, k3, lambda: screen_ref.score_tiles_fused_dt_rows(*k3_in, *d),
+        k3_in, k3(), f32_ops(c, tiles3 * 1024, valid_entries(k3_in[1][:, 2]), False, d), tiles3)
 
     screener = BatchScreener(pm, device=dev)
     tiled = screener.device_args_tiled(build_batch(pm, ligands))
@@ -148,16 +175,39 @@ def phase_kernels(pm, ligands, dev) -> dict:
     d = (tiled.depth1, tiled.depth2)
     tiles = g_in[0].shape[0]
     k4 = lambda: screen_cuda.score_blocks_fused(*g_in, *rows_in, *d)  # noqa: E731
+    entries = valid_entries(g_in[4])
     out["score_blocks_fused"] = kernel_entry(
         "score_blocks_fused", 516, k4,
         lambda: screen_ref.score_blocks_fused(*g_in, *rows_in, *d),
-        g_in + rows_in, k4(), tiles * 1024, c, d, True, tiles)
+        g_in + rows_in, k4(), f32_ops(c, tiles * 1024, entries, True, d), tiles)
     k5 = lambda: screen_cuda.gaussian_phase(*g_in)  # noqa: E731
     out["gaussian_phase"] = kernel_entry(
         "gaussian_phase", 114, k5, lambda: screen_ref.gaussian_phase(*g_in),
-        g_in, k5(), tiles * 1024, c, (0, 0), False, tiles)
+        g_in, k5(), f32_ops(c, tiles * 1024, entries, True, ()), tiles)
     torch.cuda.synchronize()
     return out
+
+
+def k2_entry(sb, dev) -> dict:
+    """K2 against its plain version on one stored v3 batch: the arrays and
+    shape (the store's common T, mn_cap and g_cap) the stored route
+    launches it with."""
+    from pharmaconet_tpu_torch.ops import screen_cuda, screen_ref
+
+    k2_in = [torch.from_numpy(np.array(a)).to(dev) for a in (sb.dt, sb.gid, sb.tab, sb.aux)]
+    kw = dict(depth=sb.depth, mn_cap=sb.mn_cap)
+    w2 = k2_in[2][:, :, 2 * sb.mn_cap : 3 * sb.mn_cap]  # [T, G, mn_cap]
+    per_row = (w2 > 0).sum(-1).gather(1, k2_in[1].long())  # valid entries of each row
+    k2 = lambda: screen_cuda.score_tiles_v3_rows(*k2_in, **kw)  # noqa: E731
+    entry = kernel_entry(
+        "score_tiles_v3", 374, k2, lambda: screen_ref.score_tiles_v3_rows(*k2_in, **kw),
+        k2_in, k2(),
+        f32_ops(k2_in[0].shape[1], k2_in[1].numel(), int(per_row.sum()), False, (sb.depth,)),
+        k2_in[0].shape[0])
+    log(f"    K2 layout: mn_cap {sb.mn_cap}, g_cap {sb.g_cap}, depth {sb.depth}, "
+        f"{k2_in[1].numel()} rows, {int(per_row.sum())} valid entries")
+    torch.cuda.synchronize()
+    return entry
 
 
 def check_scores(name, got: dict, want: dict) -> float:
@@ -207,7 +257,7 @@ def stage_ms(pm, batch, dev) -> dict[str, float]:
     return {n: statistics.median(r[i] for r in runs) for i, n in enumerate(names)}
 
 
-def phase_paths(model, pm, dev, kernels: dict, card: str) -> None:
+def phase_paths(model, pm, dev, kernels: dict, card: str):
     from pharmaconet_tpu_torch.cli.screening import build_parser, main
     from pharmaconet_tpu_torch.ops import screen_cuda
     from pharmaconet_tpu_torch.scoring.batch_screen import BatchScreener
@@ -264,6 +314,7 @@ def phase_paths(model, pm, dev, kernels: dict, card: str) -> None:
         log(f"  {kw}: {N_BATCH} ligands, launches {counts}, max |score - reference| {worst:.3g}")
         if counts[name] < 1:
             raise AssertionError(f"{kw} path never launched {name}")
+    return packed, names, ref
 
 
 def phase_dir(model, dev) -> None:
@@ -293,6 +344,113 @@ def phase_dir(model, dev) -> None:
         raise AssertionError("-d route never launched K1")
 
 
+def stored_stage_ms(screener, store, bi: int) -> dict[str, float]:
+    """Host-clock ms of one stored batch's stages (median of 3): load (the
+    store's mmap reads, paged in), copy + kernels (host-to-device copies,
+    the kernel and, for leaf-baked v3 batches, the torch leaf chain;
+    synchronised), and the host tail (scores back, and the DFS where the
+    batch has no baked leaves or has leaf outliers)."""
+    from pharmaconet_tpu_torch.scoring.tiled_store import _page_in
+
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sb = store.load(bi)
+        _page_in(sb)
+        t1 = time.perf_counter()
+        result = screener.dispatch_stored(sb)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        screener.postprocess_stored(sb, result)
+        t3 = time.perf_counter()
+        runs.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
+    names = ("load", "copy+kernels", "tail")
+    return {n: statistics.median(r[i] for r in runs) for i, n in enumerate(names)}
+
+
+def run_stored_cli(kernel: str, batches: int, version: int, pm, packed, names, ref, dev,
+                   card: str) -> tuple[int, Path]:
+    """Port prepack writes a store of the first `batches` batches of the
+    library, screening --library_tiles scores it; the CSV must match the
+    reference engine and `kernel` must have launched in the screen.
+    Returns its launch count and the store's directory."""
+    from pharmaconet_tpu_torch.cli import prepack
+    from pharmaconet_tpu_torch.cli.screening import build_parser, main
+    from pharmaconet_tpu_torch.ops import screen_cuda
+    from pharmaconet_tpu_torch.scoring.batch_screen import BatchScreener
+    from pharmaconet_tpu_torch.scoring.library import save_library
+    from pharmaconet_tpu_torch.scoring.tiled_store import TiledStore
+
+    n = N_BATCH * batches
+    tag = f"v{version}"
+    save_library(WORK / f"lib_{tag}.npz", packed[:n], names[:n])
+    tiles = WORK / f"tiles_{tag}"
+    t0 = time.perf_counter()
+    rc = prepack.main(prepack.build_parser().parse_args([
+        "--library", str(WORK / f"lib_{tag}.npz"), "-p", str(WORK / "model.pm"),
+        "--tiles_out", str(tiles), "--tiles_version", str(version),
+        "--batch_size", str(N_BATCH), "--pack_threads", "8", "--device", str(dev),
+    ]))
+    if rc != 0:
+        raise AssertionError(f"prepack --tiles_version {version} exited {rc}")
+    log(f"  prepack v{version}: {n} ligands in {time.perf_counter() - t0:.3f} s (host + card)")
+
+    args = build_parser().parse_args([
+        "-p", str(WORK / "model.pm"), "--library_tiles", str(tiles),
+        "-o", str(WORK / f"{tag}.csv"), "--device", str(dev),
+    ])
+    screen_cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(screen_cuda.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"--library_tiles ({tag}) exited {rc}")
+    worst = check_scores(f"--library_tiles {tag}", read_csv(WORK / f"{tag}.csv"),
+                         {k: ref[k] for k in names[:n]})
+    log(f"  --library_tiles {tag}: {n} ligands, {wall:.3f} s wall (load + screen + CSV), "
+        f"{n / wall:.1f} ligands/s on {card}, launches {counts}, "
+        f"max |score - reference| {worst:.3g}")
+    if counts[kernel] < 1:
+        raise AssertionError(f"--library_tiles {tag} never launched {kernel}")
+    store = TiledStore(tiles)
+    stages = stored_stage_ms(BatchScreener(pm, device=dev, pack_threads=1), store, 0)
+    log(f"  stages of one stored {tag} batch (host clock, median of 3): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()))
+    return counts[kernel], tiles
+
+
+def phase_stored(pm, packed, names, ref, dev, kernels: dict, card: str) -> None:
+    from pharmaconet_tpu_torch.ops import screen_cuda
+    from pharmaconet_tpu_torch.scoring.batch_screen import BatchScreener
+    from pharmaconet_tpu_torch.scoring.tiled_store import TiledStore, write_v3_store
+
+    launches, tiles = run_stored_cli("score_tiles_v3", N_BATCHES, 3, pm, packed, names, ref,
+                                     dev, card)
+    kernels["score_tiles_v3"] = k2_entry(TiledStore(tiles).load(0), dev)
+    kernels["score_tiles_v3"]["launches"] = launches
+    launches, _ = run_stored_cli("score_tiles_fused_dt", 2, 2, pm, packed, names, ref, dev, card)
+    kernels["score_tiles_fused_dt"]["launches"] = launches
+
+    # K2 + pair compaction on the device: a v3 store without baked leaves
+    write_v3_store(WORK / "tiles_noleaf", pm, packed[:N_BATCH], names[:N_BATCH],
+                   batch_size=N_BATCH, threads=8, verbose=False, bake_leaves=False)
+    store = TiledStore(WORK / "tiles_noleaf", pm)
+    screener = BatchScreener(pm, device=dev)
+    screen_cuda.reset_launch_counts()
+    scores = [s for bi in range(store.n_batches) for s in screener.score_stored(store.load(bi))]
+    torch.cuda.synchronize()
+    counts = dict(screen_cuda.LAUNCHES)
+    worst = check_scores("v3 without leaves", dict(zip(store.names(), scores)),
+                         {k: ref[k] for k in names[:N_BATCH]})
+    log(f"  v3 store without leaves (score_stored, pairs compacted on the card): "
+        f"{N_BATCH} ligands, launches {counts}, max |score - reference| {worst:.3g}")
+    if counts["score_tiles_v3"] < 1:
+        raise AssertionError("the v3 route without leaves never launched score_tiles_v3")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -315,13 +473,17 @@ def main() -> int:
     WORK.mkdir(parents=True)
     try:
         log("[4] screening paths")
-        phase_paths(model, pm, dev, kernels, smi)
+        packed, names, ref = phase_paths(model, pm, dev, kernels, smi)
         log("[5] -d route")
         phase_dir(model, dev)
+        log("[6] stored route")
+        phase_stored(pm, packed, names, ref, dev, kernels, smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    print(json.dumps({"kernels": list(kernels.values())}))
+    order = ("score_tiles_fused_rows", "score_tiles_v3", "score_tiles_fused_dt",
+             "score_blocks_fused", "gaussian_phase")
+    print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

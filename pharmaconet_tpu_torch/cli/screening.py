@@ -1,13 +1,17 @@
-"""Virtual screening CLI (live route) on one torch device.
+"""Virtual screening CLI on one torch device.
 
 Flags, library discovery and CSV output follow `pharmaconet_tpu`'s
 screening CLI. Ligands come from a directory of .sdf/.mol2 files (-d),
-parsed and packed on the host, or from a prepacked .npz library
-(--library), whose batches stream through the overlapped executor.
-Scoring runs on --device (default cuda; asking for cuda without a visible
-card is an error, never a quiet move to the CPU).
+parsed and packed on the host, from a prepacked .npz library (--library),
+whose batches stream through the overlapped executor, or from a
+model-specific tile store (--library_tiles, written by `prepack
+--tiles_out`), whose batches go straight to the kernels. Scoring runs on
+--device (default cuda; asking for cuda without a visible card is an
+error, never a quiet move to the CPU).
 
   python -m pharmaconet_tpu_torch.cli.screening -p model.pm --library lib.npz \\
+      -o out.csv --device cuda
+  python -m pharmaconet_tpu_torch.cli.screening -p model.pm --library_tiles tiles/ \\
       -o out.csv --device cuda
 """
 
@@ -31,7 +35,8 @@ def build_parser() -> argparse.ArgumentParser:
     cfg.add_argument("--library", type=str,
                      help="prepacked ligand library (.npz from prepack)")
     cfg.add_argument("--library_tiles", type=str,
-                     help="tile store directory (not yet ported)")
+                     help="model-specific tile store directory (prepack "
+                          "--tiles_out; skips the host pack)")
     cfg.add_argument("--smiles", type=str,
                      help="SMILES library file (not yet ported)")
     cfg.add_argument("-o", "--out", type=str, required=True, help="result CSV path")
@@ -75,11 +80,53 @@ def load_partial(partial_path: Path, names: list[str]) -> dict[int, float]:
     return done
 
 
+def screen_tiles(screener, store_path: str, out: str) -> list[tuple[str, float]]:
+    """Screen every batch of a tile store; returns (name, score) in
+    library order. Batch i+1 is dispatched (asynchronous on the card)
+    before batch i's host tail runs, and a prefetch thread pages batch
+    i+1 in from disk meanwhile. Scores append to <out>.partial as batches
+    complete; a rerun skips the ligands already there."""
+    from pharmaconet_tpu_torch.scoring.tiled_store import TiledStore
+
+    store = TiledStore(store_path, screener.packed_model)
+    names = store.names()
+    print(f"tile store: {store.n_ligands} ligands in {store.n_batches} batches")
+
+    partial_path = Path(out + ".partial")
+    done = load_partial(partial_path, names)
+    results = [(names[i], s) for i, s in done.items()]
+    todo = [
+        bi for bi in range(store.n_batches)
+        if not all(i in done for i in range(bi * store.batch_size,
+                                            min((bi + 1) * store.batch_size, store.n_ligands)))
+    ]
+    with open(partial_path, "a") as partial:
+
+        def emit(sb, result, base):
+            scores = (screener.postprocess_stored(sb, result)
+                      if result is not None else [0.0] * sb.batch_len)
+            for j, score in enumerate(scores):
+                if base + j not in done:
+                    partial.write(f"{base + j},{names[base + j]},{score}\n")
+                    results.append((names[base + j], score))
+            partial.flush()
+
+        pending = None
+        for bi, sb in store.iter_loaded(todo):
+            result = None if sb.empty else screener.dispatch_stored(sb)
+            if pending is not None:
+                emit(*pending)
+            pending = (sb, result, bi * store.batch_size)
+        if pending is not None:
+            emit(*pending)
+    partial_path.unlink()  # complete: the sorted CSV is the record
+    return results
+
+
 def main(args) -> int:
-    for flag in ("library_tiles", "smiles"):
-        if getattr(args, flag):
-            print(f"--{flag} is not yet ported to pharmaconet_tpu_torch", file=sys.stderr)
-            return 2
+    if args.smiles:
+        print("--smiles is not yet ported to pharmaconet_tpu_torch", file=sys.stderr)
+        return 2
 
     from pharmaconet_tpu_torch.pharmacophore.model import PharmacophoreModel
     from pharmaconet_tpu_torch.scoring.batch_screen import BatchScreener
@@ -100,7 +147,9 @@ def main(args) -> int:
                              device=args.device)
 
     results: list[tuple[str, float]] = []
-    if args.library:
+    if args.library_tiles:
+        results = screen_tiles(screener, args.library_tiles, args.out)
+    elif args.library:
         # prepacked library: skip parsing/perception entirely; the executor
         # overlaps C++ packing (GIL-released worker threads) with device
         # dispatch + host postprocessing, preserving score order. Batch

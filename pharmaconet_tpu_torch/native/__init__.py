@@ -138,6 +138,32 @@ def get_match_dfs_mt():
     return _configure(lib.match_dfs_mt, None, [*_DFS_ARGS, ctypes.c_int32])
 
 
+def get_match_dfs_leaves():
+    """The match_dfs_leaves symbol (native/match_dfs.cpp): gated-tree leaf
+    enumeration for the prepack-time leaf bake."""
+    lib = _load("match_dfs", "match_dfs.cpp", ("-pthread",))
+    return _configure(lib.match_dfs_leaves, ctypes.c_int64, [
+        ctypes.c_int32,  # num_ligands
+        _f32p, ctypes.c_int64,  # table, cmax
+        _i64p, _i32p,  # pair_starts, conformers
+        _i32p, _i32p,  # active_offsets, cand_counts
+        ctypes.c_int32, ctypes.c_int64,  # lmax, capacity
+        np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS"),  # assign_out
+        _i64p,  # leaf_offsets
+    ])
+
+
+def get_tile_dt():
+    """The tile_dt symbol (native/dt_tiles.cpp): prepack-time conformer
+    distances for v2 tile stores. Built with -ffp-contract=off, so it is
+    bit-identical to the numpy path of screen_tiles.tile_distances."""
+    lib = _load("dt_tiles", "dt_tiles.cpp", ("-ffp-contract=off",))
+    return _configure(lib.tile_dt, None, [
+        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # t, c, tile, cap
+        _f32p, _i32p, _f32p,  # pos, uv, out
+    ])
+
+
 def get_pack_tiled():
     """The pack_tiled symbol (native/pack_tiled.cpp, fused tiled packer)."""
     lib = _load("pack_tiled", "pack_tiled.cpp", ("-pthread",))

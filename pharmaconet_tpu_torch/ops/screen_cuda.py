@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written CUDA screening kernels (K1, K4, K5).
+"""Wrappers of the hand-written CUDA screening kernels (K1-K5).
 
 The kernels live in csrc/screen_fused.cu (see its header for what each
 replaces and what bounds it). The source is compiled with nvcc for sm_90a
@@ -32,8 +32,10 @@ NVCC_FLAGS = [
 ]
 BLOCK_P = 8
 MAX_CONFORMERS = 8
+MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90
 
-LAUNCHES = {"score_tiles_fused_rows": 0, "score_blocks_fused": 0, "gaussian_phase": 0}
+LAUNCHES = {"score_tiles_fused_rows": 0, "score_tiles_v3": 0, "score_tiles_fused_dt": 0,
+            "score_blocks_fused": 0, "gaussian_phase": 0}
 
 _lib: ctypes.CDLL | None = None
 
@@ -70,9 +72,14 @@ def load_library() -> ctypes.CDLL:
         lib.screen_blocks_fused.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
         lib.screen_gauss_phase.restype = i
         lib.screen_gauss_phase.argtypes = [vp, vp, vp, vp, vp, vp, i, i, vp]
+        lib.screen_tiles_fused_dt.restype = i
+        lib.screen_tiles_fused_dt.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
+        lib.screen_tiles_v3.restype = i
+        lib.screen_tiles_v3.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
         lib.screen_max_conformers.restype = i
-        if lib.screen_max_conformers() != MAX_CONFORMERS:
-            raise RuntimeError(f"{path}: kernel library disagrees on the conformer limit")
+        lib.screen_max_smem.restype = i
+        if (lib.screen_max_conformers(), lib.screen_max_smem()) != (MAX_CONFORMERS, MAX_SMEM):
+            raise RuntimeError(f"{path}: kernel library disagrees on its limits")
         _lib = lib
     return _lib
 
@@ -102,7 +109,16 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None
 def _conformers(pos_blocks: torch.Tensor) -> tuple[int, int]:
     if pos_blocks.dim() != 3 or pos_blocks.shape[1] % 3 or pos_blocks.shape[2] != NODE_CAP:
         raise ValueError(f"pos_blocks must be [T, 3C, {NODE_CAP}], got {tuple(pos_blocks.shape)}")
-    t, c = pos_blocks.shape[0], pos_blocks.shape[1] // 3
+    return _conformer_count(pos_blocks.shape[0], pos_blocks.shape[1] // 3)
+
+
+def _dt_conformers(dt: torch.Tensor) -> tuple[int, int]:
+    if dt.dim() != 3 or dt.shape[2] != TILE:
+        raise ValueError(f"dt must be [T, C, {TILE}], got {tuple(dt.shape)}")
+    return _conformer_count(dt.shape[0], dt.shape[1])
+
+
+def _conformer_count(t: int, c: int) -> tuple[int, int]:
     if not 1 <= c <= MAX_CONFORMERS:
         raise ValueError(
             f"{c} conformers per ligand; the CUDA screening kernels take 1..{MAX_CONFORMERS}"
@@ -145,6 +161,86 @@ def score_tiles_fused_rows(
     _launch("score_tiles_fused_rows", pos_blocks.device, lib.screen_tiles_fused,
             pos_blocks, uv, gtab, aux, out, t, c, int(depth1), int(depth2))
     return out
+
+
+def score_tiles_fused_dt_rows(
+    dt: torch.Tensor,  # [T, C, TILE] f32 stored conformer distances
+    gtab: torch.Tensor,  # [T, 3, P, TILE] f32
+    aux: torch.Tensor,  # [T, 7, TILE] f32
+    depth1: int,
+    depth2: int,
+) -> torch.Tensor:
+    """K3: K1 with the distances of a v2 tile store. Returns [T*TILE, C]
+    rows (scores at pair-end rows, -1 on failed cross pairs)."""
+    if _on_cpu(dt, gtab, aux):
+        return screen_ref.score_tiles_fused_dt_rows(dt, gtab, aux, depth1, depth2)
+    t, c = _dt_conformers(dt)
+    _check("dt", dt, torch.float32, (t, c, TILE))
+    _check("gtab", gtab, torch.float32, (t, 3, BLOCK_P, TILE))
+    _check("aux", aux, torch.float32, (t, 7, TILE))
+    lib = load_library()
+    out = torch.empty((t * TILE, c), dtype=torch.float32, device=dt.device)
+    _launch("score_tiles_fused_dt", dt.device, lib.screen_tiles_fused_dt,
+            dt, gtab, aux, out, t, c, int(depth1), int(depth2))
+    return out
+
+
+def v3_shared_bytes(c: int, g_cap: int, r_pad: int) -> int:
+    """Shared memory one K2 block needs: the tile's [g_cap, r_pad] group
+    table plus the scan buffers. Raises when it exceeds what a block may
+    use (g_cap grows when one pair references many groups)."""
+    smem = 4 * (g_cap * r_pad + (2 * c + 1) * TILE)
+    if smem > MAX_SMEM:
+        raise ValueError(
+            f"score_tiles_v3: a [{g_cap}, {r_pad}] group table with {c} conformers "
+            f"needs {smem} bytes of shared memory per block; the card allows {MAX_SMEM}"
+        )
+    return smem
+
+
+def score_tiles_v3_rows(
+    dt: torch.Tensor,  # [T, C, TILE] f32 per-block conformer distances
+    gid: torch.Tensor,  # [T, TILE] i32 group slot of each row
+    tab: torch.Tensor,  # [T, G, R] f32 per-tile group tables
+    aux: torch.Tensor,  # [T, 3, TILE] f32 (pair-start flag, thr, is_self)
+    depth: int,
+    mn_cap: int,
+) -> torch.Tensor:
+    """K2: the v3 block-major kernel. Returns [T*TILE, C] rows (scores at
+    pair-end rows, -1 on failed cross pairs). The tile's group table is
+    staged in shared memory; a table too large for one block raises."""
+    if _on_cpu(dt, gid, tab, aux):
+        return screen_ref.score_tiles_v3_rows(dt, gid, tab, aux, depth, mn_cap)
+    t, c = _dt_conformers(dt)
+    if tab.dim() != 3 or tab.shape[0] != t or tab.shape[2] < 3 * mn_cap + 1:
+        raise ValueError(f"tab must be [{t}, G, R >= {3 * mn_cap + 1}], got {tuple(tab.shape)}")
+    g_cap, r_pad = tab.shape[1], tab.shape[2]
+    _check("dt", dt, torch.float32, (t, c, TILE))
+    _check("gid", gid, torch.int32, (t, TILE))
+    _check("tab", tab, torch.float32, (t, g_cap, r_pad))
+    _check("aux", aux, torch.float32, (t, 3, TILE))
+    v3_shared_bytes(c, g_cap, r_pad)
+    lib = load_library()
+    out = torch.empty((t * TILE, c), dtype=torch.float32, device=dt.device)
+    _launch("score_tiles_v3", dt.device, lib.screen_tiles_v3, dt, gid, tab, aux, out,
+            t, c, g_cap, r_pad, int(mn_cap), int(depth))
+    return out
+
+
+def score_tiles_v3_pairs(
+    dt: torch.Tensor,
+    gid: torch.Tensor,
+    tab: torch.Tensor,
+    aux: torch.Tensor,
+    ends: torch.Tensor,  # [NPpad] pair-end rows, clipped to >= 0
+    depth: int,
+    mn_cap: int,
+) -> torch.Tensor:
+    """K2 + pair compaction on the device: the [NPpad, C] rows of K2's
+    output at the pair-end rows (one index_select after the kernel, where
+    the JAX package gathers with jnp.take after its Pallas call)."""
+    rows = score_tiles_v3_rows(dt, gid, tab, aux, depth, mn_cap)
+    return rows.index_select(0, ends.long())
 
 
 def score_blocks_fused(

@@ -1,4 +1,4 @@
-"""Plain torch versions of the fused screening kernels (K1, K4, K5).
+"""Plain torch versions of the screening kernels (K1-K5).
 
 Each function computes what its hand-written CUDA kernel in
 csrc/screen_fused.cu computes, step by step as the JAX package's Pallas
@@ -11,9 +11,13 @@ against them on the card.
 Shapes (C conformers, P = 8 model pairs, TILE = 1024 rows, T tiles):
   pos_blocks [T, 3C, NODE_CAP] f32   per-tile node positions (row 3c+k)
   uv         [T, TILE] i32           u_slot * NODE_CAP + v_slot
+  dt         [T, C, TILE] f32        stored conformer distances (K2, K3)
   mu/inv/winv [T, P, TILE] f32       Gaussian tables (0 weight = padding)
   aux rows   [T, TILE] f32 each      flags_block, flags_pair, end_mn_inv,
                                      end_mn_half, end_fail_gate, thr, is_self
+  K2 (v3 layout): gid [T, TILE] i32 group slot, tab [T, G, R] f32 group
+  tables (rows [0, mn) mu, [mn, 2mn) 1/std, [2mn, 3mn) w2, 3mn mnhalf),
+  aux [T, 3, TILE] f32 (pair-start flag, thr, is_self)
 """
 
 from __future__ import annotations
@@ -40,7 +44,16 @@ def gauss_phase_tiles(
     dvec = dvec.reshape(t, c, 3, tile)
     dx, dy, dz = dvec[:, :, 0], dvec[:, :, 1], dvec[:, :, 2]
     d = torch.sqrt((dx * dx + dy * dy) + dz * dz)  # [T, C, tile]
-    x = (d[:, None] - mu[:, :, None]) * inv[:, :, None]  # [T, P, C, tile]
+    return gauss_phase_dt(d, mu, inv, winv)
+
+
+def gauss_phase_dt(
+    dt: torch.Tensor, mu: torch.Tensor, inv: torch.Tensor, winv: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gaussian phase from conformer distances dt [T, C, tile] and tables
+    [T, K, tile] (K = P model pairs, or mn_cap for K2): returns (scores,
+    pass counts), each [T, C, tile], summed over K."""
+    x = (dt[:, None] - mu[:, :, None]) * inv[:, :, None]  # [T, K, C, tile]
     x2 = x * x
     w = winv[:, :, None]
     valid = w > 0.0
@@ -122,6 +135,62 @@ def score_tiles_fused_rows(
     """score_tiles_fused as [T*TILE, C] rows (the layout the host's pair
     compaction reads)."""
     return score_tiles_fused(pos_blocks, uv, gtab, aux, depth1, depth2).T.contiguous()
+
+
+def score_tiles_fused_dt(
+    dt: torch.Tensor, gtab: torch.Tensor, aux: torch.Tensor,
+    depth1: int, depth2: int,
+) -> torch.Tensor:
+    """K3: K1 with the conformer distances read from the store's dt
+    [T, C, TILE] instead of rebuilt from node tables; returns the expanded
+    [C, T*TILE] table. The counterpart of the JAX `score_tiles_fused_dt`."""
+    scores, npass = gauss_phase_dt(dt, gtab[:, 0], gtab[:, 1], gtab[:, 2])
+    rows = [aux[:, j] for j in range(7)]
+    return _untile(scan_fail_tail(scores, npass, *rows, depth1, depth2))
+
+
+def score_tiles_fused_dt_rows(
+    dt: torch.Tensor, gtab: torch.Tensor, aux: torch.Tensor,
+    depth1: int, depth2: int,
+) -> torch.Tensor:
+    """score_tiles_fused_dt as [T*TILE, C] rows."""
+    return score_tiles_fused_dt(dt, gtab, aux, depth1, depth2).T.contiguous()
+
+
+def score_tiles_v3(
+    dt: torch.Tensor, gid: torch.Tensor, tab: torch.Tensor, aux: torch.Tensor,
+    depth: int, mn_cap: int,
+) -> torch.Tensor:
+    """K2 over the v3 block-major layout: each row reads its group's
+    (mu, 1/std, w2, mnhalf) from the tile's table by `gid`, sums the
+    Gaussian terms and passes over mn_cap, sets the block fail in-row
+    (passes < mnhalf on a cross pair), runs ONE pair-level bounded scan of
+    [score; block_fail] over the pair-start flags, and writes -1 where a
+    cross pair's fails exceed its threshold. Returns the expanded
+    [C, T*TILE] table. The counterpart of the JAX `score_tiles_v3`."""
+    t, c, tile = dt.shape
+    sel = torch.gather(
+        tab, 1, gid.long()[:, :, None].expand(t, tile, tab.shape[2])
+    ).transpose(1, 2)  # [T, R, tile]
+    mu = sel[:, :mn_cap]
+    inv = sel[:, mn_cap : 2 * mn_cap]
+    w2 = sel[:, 2 * mn_cap : 3 * mn_cap]
+    mnhalf = sel[:, 3 * mn_cap]  # [T, tile]
+    score, npass = gauss_phase_dt(dt, mu, inv, w2)
+    fp, thr, selff = aux[:, 0], aux[:, 1], aux[:, 2]
+    block_fail = torch.where(npass < mnhalf[:, None], (1.0 - selff)[:, None], 0.0)
+    pb = scan_bounded_tile(torch.cat([score, block_fail], dim=1), fp, depth)
+    pair_score, pair_fail = pb[:, :c], pb[:, c:]
+    failed = (pair_fail > thr[:, None]) & (selff == 0.0)[:, None]
+    return _untile(torch.where(failed, -1.0, pair_score))
+
+
+def score_tiles_v3_rows(
+    dt: torch.Tensor, gid: torch.Tensor, tab: torch.Tensor, aux: torch.Tensor,
+    depth: int, mn_cap: int,
+) -> torch.Tensor:
+    """score_tiles_v3 as [T*TILE, C] rows."""
+    return score_tiles_v3(dt, gid, tab, aux, depth, mn_cap).T.contiguous()
 
 
 def score_blocks_fused(

@@ -13,10 +13,12 @@ fork pool. Here screening runs in three stages:
      segmented scans (sub-block -> block for pass counting; block ->
      cluster pair for scores/fails). Semantics equal the numba kernels:
      pass iff ((d-mu)/std)^2 < 4, block passes iff num_pass >= (M*N+1)//2,
-     pair fails iff fails > n1*n2/2. The default engine ("tiled") runs the
-     hand-written CUDA kernels of ops/screen_cuda.py on the card and their
-     plain torch twins (ops/screen_ref.py) on the CPU; the "reference"
-     engine is score_blocks_device below, in plain torch.
+     pair fails iff fails > n1*n2/2. The default engine ("tiled") and the
+     "v3" engine run the hand-written CUDA kernels of ops/screen_cuda.py on
+     the card and their plain torch twins (ops/screen_ref.py) on the CPU;
+     the "reference" engine is score_blocks_device below, in plain torch.
+     Tile-store batches (scoring/tiled_store.py) go through
+     BatchScreener.score_stored.
   3. HOST DFS — the assignment tree (native/match_dfs.cpp) consumes the
      per-pair tables.
 
@@ -27,6 +29,7 @@ enforce it).
 from __future__ import annotations
 
 import contextlib
+import types
 from dataclasses import dataclass
 
 import numpy as np
@@ -843,22 +846,29 @@ def _dfs_scores(
     """
     from ..native import get_match_dfs, get_match_dfs_mt
 
-    num = len(batch.ligand_clusters)
-    pair_starts = np.array([s for s, _ in batch.pair_slices], dtype=np.int64)
-    conformers = batch.num_conformers.astype(np.int32)[:num]
-    active_offsets = [0]
-    cand_counts: list[int] = []
-    for active, cands in batch.candidates:
-        cand_counts.extend(len(cands[l]) for l in active)
-        active_offsets.append(len(cand_counts))
+    cached = getattr(batch, "dfs_arrays", None)
+    if cached is not None:
+        # tile-store batches carry the arrays below, converted at prepack
+        pair_starts, conformers, active_offsets, cand_counts = (
+            np.ascontiguousarray(a) for a in cached
+        )
+    else:
+        pair_starts = np.array([s for s, _ in batch.pair_slices], dtype=np.int64)
+        conformers = batch.num_conformers.astype(np.int32)[: len(batch.ligand_clusters)]
+        offsets = [0]
+        counts: list[int] = []
+        for active, cands in batch.candidates:
+            counts.extend(len(cands[l]) for l in active)
+            offsets.append(len(counts))
+        active_offsets = np.asarray(offsets, dtype=np.int32)
+        cand_counts = np.asarray(counts, dtype=np.int32)
+    num = len(conformers)
     out = np.zeros(num, dtype=np.float32)
     table_c = np.ascontiguousarray(table, dtype=np.float32)
     args = (
-        num, table_c, table_c.shape[1], pair_starts, conformers,
-        np.asarray(active_offsets, dtype=np.int32),
-        np.asarray(cand_counts, dtype=np.int32)
-        if cand_counts else np.zeros(0, np.int32),
-        out,
+        num, table_c, table_c.shape[1], pair_starts,
+        np.ascontiguousarray(conformers, dtype=np.int32), active_offsets,
+        cand_counts if len(cand_counts) else np.zeros(0, np.int32), out,
     )
     if threads > 1:
         get_match_dfs_mt()(*args, threads)
@@ -908,6 +918,18 @@ def _bucket_up(n: int, minimum: int = 1024) -> int:
     return size
 
 
+def _used_tiles(tb) -> int:
+    """Tiles of a K1/K3 batch that go to the device: those up to the last
+    row (a fresh pack's nst) or the last pair end (a store batch). The
+    padding after them is neutral and no pair ends there."""
+    from .screen_tiles import TILE
+
+    nst = getattr(tb, "nst", None)
+    if nst is None:
+        return int(tb.pair_end_rows.max(initial=0)) // TILE + 1
+    return max(1, -(-nst // TILE))
+
+
 class BatchScreener:
     """Screens ligand batches against one pharmacophore model on one torch
     device.
@@ -916,14 +938,18 @@ class BatchScreener:
     (score_tiles_fused_rows) over the one-pass native pack; with
     native_pack=False, K4 (score_blocks_fused) over the build_batch +
     screen_tiles layout; with fused=False, K5 (gaussian_phase) plus the
-    torch scans. On a CUDA device each is the hand-written kernel of
-    ops/screen_cuda.py, on the CPU its plain torch twin.
+    torch scans.
+    engine "v3": K2 (score_tiles_v3) over the screen_v3 layout.
     engine "reference": score_blocks_device, in plain torch.
+    Tile-store batches (score_stored) run K2 (v3 stores), K3 (v2 stores,
+    score_tiles_fused_dt) or K1 (v1 stores) whatever the engine. On a
+    CUDA device each kernel is the hand-written one of ops/screen_cuda.py,
+    on the CPU its plain torch twin.
 
     device defaults to "cuda" and raises when no card is visible.
     """
 
-    ENGINES = ("tiled", "reference")
+    ENGINES = ("tiled", "v3", "reference")
 
     def __init__(
         self,
@@ -965,6 +991,9 @@ class BatchScreener:
         """Host array -> tensor on the screener's device. The copy from
         pageable host memory has finished reading `a` when this returns, so
         a pack buffer may be reused as soon as the launch is queued."""
+        a = np.asarray(a)
+        if not a.flags.writeable:  # a read-only store mapping: copy it out
+            a = np.array(a)
         t = torch.from_numpy(np.ascontiguousarray(a))
         return t.to(self.device, dtype=dtype)
 
@@ -991,6 +1020,9 @@ class BatchScreener:
             return out
         if self.uses_tiled_pack:
             scores = self._score_tiled_native([p for _, p in live])
+        elif self.engine == "v3":
+            batch = build_batch(self.packed_model, [p for _, p in live])
+            scores = self.score_vb(self.build_vb(batch))
         else:
             batch = build_batch(self.packed_model, [p for _, p in live])
             if self.engine == "tiled":
@@ -1021,13 +1053,10 @@ class BatchScreener:
         return self.score_tb(tb)
 
     def dispatch_tb(self, tb) -> torch.Tensor:
-        """Launch K1 on a packed tiled batch (asynchronous on the card).
-        Only the tiles that hold rows go to the device: the pack's bucket
-        padding is neutral and no pair ends there. Returns the [T*1024, C]
-        rows on the screener's device."""
-        from .screen_tiles import TILE
-
-        t = max(1, -(-tb.nst // TILE))
+        """Launch K1 on a packed tiled batch or a v1 store batch
+        (asynchronous on the card). Returns the [T*1024, C] rows on the
+        screener's device."""
+        t = _used_tiles(tb)
         with self._device_scope():
             return screen_cuda.score_tiles_fused_rows(
                 self._to_device(tb.pos_blocks[:t]), self._to_device(tb.uv[:t]),
@@ -1046,6 +1075,154 @@ class BatchScreener:
     def score_tb(self, tb) -> list[float]:
         """Device + host tail for one packed tiled batch."""
         return self.postprocess_tb(tb, self.dispatch_tb(tb))
+
+    # ------------------------------------------------------------------
+    # v3 engine (block-major rows + deduplicated group tables;
+    # scoring/screen_v3.py + K2)
+    # ------------------------------------------------------------------
+    def build_vb(self, batch: ScreenBatch):
+        """v3 layout with shape buckets: rows pad to the half-octave tile
+        grid, the in-kernel mn axis to a half-octave of 8, and the pair-end
+        rows (for compaction on the device) to a half-octave of 1024."""
+        from .screen_tiles import TILE
+        from .screen_v3 import build_v3_layout, pad_v3, padded_ends
+
+        mn_max = int(batch.block_mn.max(initial=1))
+        vb = build_v3_layout(
+            batch, mn_cap=_bucket_up(mn_max, 8), model=self.packed_model
+        )
+        t = vb.dt.shape[0]
+        t_bucket = -(-_bucket_up(max(vb.nbt, 1), TILE) // TILE)
+        if t_bucket > t:
+            vb = pad_v3(vb, t_bucket)
+        vb.ends_padded = padded_ends(
+            vb.pair_end_rows, _bucket_up(max(len(vb.pair_end_rows), 1))
+        )
+        return vb
+
+    def _v3_args(self, b) -> tuple:
+        return (self._to_device(b.dt), self._to_device(b.gid),
+                self._to_device(b.tab), self._to_device(b.aux))
+
+    def dispatch_vb(self, vb) -> torch.Tensor:
+        """Launch K2 on a v3 batch (asynchronous on the card). With
+        ends_padded set, pair compaction happens on the device and this
+        returns the [NPpad, C] pair table; otherwise the [T*1024, C] rows
+        for host compaction."""
+        with self._device_scope():
+            args = self._v3_args(vb)
+            if vb.ends_padded is not None:
+                return screen_cuda.score_tiles_v3_pairs(
+                    *args, self._to_device(vb.ends_padded), depth=vb.depth,
+                    mn_cap=vb.mn_cap,
+                )
+            return screen_cuda.score_tiles_v3_rows(*args, depth=vb.depth, mn_cap=vb.mn_cap)
+
+    def _pair_table(self, b, rows_dev: torch.Tensor) -> np.ndarray:
+        """[NP, C] host pair table from a device result: the compacted
+        pair rows (ends_padded set) or the full rows, compacted here;
+        empty pairs score 0."""
+        if getattr(b, "ends_padded", None) is not None:
+            table = self._to_host(rows_dev)[: len(b.pair_end_rows)].copy()
+            table[b.pair_end_rows < 0] = 0.0
+            return table
+        return compact_pair_table_rows(self._to_host(rows_dev), b.pair_end_rows)
+
+    def postprocess_vb(self, vb, rows_dev: torch.Tensor) -> list[float]:
+        """Host tail for one v3 batch: pair table, prune, DFS."""
+        table = self._pair_table(vb, rows_dev)
+        prune = host_prune_mask(vb, self.packed_model)
+        table[: len(prune)][prune] = -1.0
+        return _dfs_scores(vb, table, threads=self.pack_threads)
+
+    def score_vb(self, vb) -> list[float]:
+        return self.postprocess_vb(vb, self.dispatch_vb(vb))
+
+    # ------------------------------------------------------------------
+    # tile-store batches (scoring/tiled_store.py)
+    # ------------------------------------------------------------------
+    def dispatch_stored(self, sb):
+        """Launch the kernels of one tile-store batch (asynchronous on the
+        card). Returns what postprocess_stored takes:
+          v3 + leaf buckets / single-window leaves: ([B] scores, outlier
+            pair rows) from K2 and the torch leaf chain;
+          v3 with padded pair-end rows: the [NPpad, C] pair table (K2 +
+            compaction on the device);
+          v3 without them: K2's [T*1024, C] rows;
+          v2 (dt.npy): K3's rows; v1 (no dt.npy): K1's rows, over the
+          tiles that hold pair ends."""
+        if getattr(sb, "gid", None) is not None:
+            with self._device_scope():
+                return self._dispatch_stored_v3(sb)
+        if sb.dt is None:
+            return self.dispatch_tb(sb)
+        t = _used_tiles(sb)
+        with self._device_scope():
+            return screen_cuda.score_tiles_fused_dt_rows(
+                self._to_device(sb.dt[:t]), self._to_device(sb.gtab[:t]),
+                self._to_device(sb.aux[:t]), depth1=sb.depth1, depth2=sb.depth2,
+            )
+
+    def _dispatch_stored_v3(self, sb):
+        from .leaf_tree import leaf2_scores_device, leaf2_scores_multi
+
+        if sb.leaf_buckets is None and sb.leaf2_ps is None:
+            return self.dispatch_vb(sb)
+        rows = screen_cuda.score_tiles_v3_rows(
+            *self._v3_args(sb), depth=sb.depth, mn_cap=sb.mn_cap
+        )
+        if sb.leaf_buckets is not None:
+            buckets = tuple(tuple(self._to_device(a) for a in b) for b in sb.leaf_buckets)
+            return leaf2_scores_multi(
+                rows, self._to_device(sb.leaf2_out_ends), buckets, nb=sb.leaf_nb
+            )
+        return leaf2_scores_device(
+            rows, *(self._to_device(a) for a in (
+                sb.leaf2_ends, sb.leaf2_ps, sb.leaf2_pc, sb.leaf2_pw,
+                sb.leaf_conf, sb.leaf2_out_ends)),
+        )
+
+    def postprocess_stored(self, sb, result) -> list[float]:
+        """Host tail for a tile-store batch, in batch order (cluster-less
+        ligands score 0). Leaf-baked batches hand the final live scores
+        plus the outlier rows, which get a host DFS over their few
+        ligands; the others a pair table for the C++ DFS, with the prune
+        mask and DFS arrays precomputed at prepack time."""
+        scores = [0.0] * sb.batch_len
+        if getattr(sb, "leaf2_ps", None) is not None or getattr(sb, "leaf_buckets", None) is not None:
+            dev_scores, out_rows = result
+            for i, s in zip(sb.live_index, self._to_host(dev_scores).astype(np.float64)):
+                scores[int(i)] = float(s)
+            o = sb.leaf2_out
+            if len(o["live"]):
+                # heavy-tail ligands above the baked caps: host DFS over
+                # their device-gathered sub-table (empty pairs already 0.0
+                # via the zero row; prune applied here)
+                n_rows = int(o["n_rows"])
+                tbl = self._to_host(out_rows)[:n_rows].copy()
+                tbl[o["prune"][:n_rows]] = -1.0
+                duck = types.SimpleNamespace(dfs_arrays=(
+                    o["pair_starts"], o["conformers"], o["active_offsets"],
+                    o["cand_counts"]))
+                out_scores = _dfs_scores(duck, tbl, threads=self.pack_threads)
+                for k, li in enumerate(o["live"]):
+                    scores[int(sb.live_index[int(li)])] = float(out_scores[k])
+            return scores
+        if getattr(sb, "pair_end_rows", 0) is None:
+            # a leaf-baked load deferred the DFS-tail fields
+            sb.ensure_host_fields()
+        table = self._pair_table(sb, result)
+        table[: len(sb.prune)][sb.prune] = -1.0
+        live_scores = _dfs_scores(sb, table, threads=self.pack_threads)
+        for i, s in zip(sb.live_index, live_scores):
+            scores[int(i)] = s
+        return scores
+
+    def score_stored(self, sb) -> list[float]:
+        """Device + host tail for one StoredBatch / StoredV3Batch."""
+        if sb.empty:
+            return [0.0] * sb.batch_len
+        return self.postprocess_stored(sb, self.dispatch_stored(sb))
 
     def device_args_tiled(self, batch: ScreenBatch, ns_tiled: int | None = None):
         """Host prep for the K4/K5 routes: untiled lane-major prep (without

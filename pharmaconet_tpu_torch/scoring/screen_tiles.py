@@ -53,6 +53,40 @@ def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
+def tile_distances(
+    pos_blocks: np.ndarray,  # [T, 3C, cap]
+    uv: np.ndarray,  # [T, tile] i32 (u_loc * cap + v_loc)
+    cap: int = NODE_CAP,
+    native: bool = True,
+) -> np.ndarray:
+    """The per-row conformer distances [T, C, tile] that K1 rebuilds in
+    each tile, computed once at prepack time for v2 tile stores (K3 reads
+    them instead). native=True runs native/dt_tiles.cpp; native=False the
+    numpy path below. Both take the same f32 steps ((dx²+dy²)+dz², then
+    sqrt, no fused multiply-add), so their outputs are bit-identical and a
+    store does not depend on which one wrote it."""
+    t, threec, _ = pos_blocks.shape
+    c = threec // 3
+    ntile = uv.shape[1]
+    if native:
+        from ..native import get_tile_dt
+
+        out = np.empty((t, c, ntile), np.float32)
+        get_tile_dt()(t, c, ntile, cap,
+                      np.ascontiguousarray(pos_blocks, np.float32),
+                      np.ascontiguousarray(uv, np.int32), out)
+        return out
+    u = (uv.astype(np.int64) // cap)[:, None, :]
+    v = (uv.astype(np.int64) % cap)[:, None, :]
+    pu = np.take_along_axis(pos_blocks, u, axis=2)  # [T, 3c, tile]
+    pv = np.take_along_axis(pos_blocks, v, axis=2)
+    d = (pu - pv).reshape(t, c, 3, ntile)
+    d2 = d[:, :, 0] * d[:, :, 0]
+    d2 = d2 + d[:, :, 1] * d[:, :, 1]
+    d2 = d2 + d[:, :, 2] * d[:, :, 2]
+    return np.sqrt(d2, dtype=np.float32)
+
+
 def build_tiled_layout(
     batch,
     prep_args: tuple,

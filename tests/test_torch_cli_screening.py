@@ -1,7 +1,8 @@
 """The port's screening CLI (--device cpu) against the JAX package's CLI.
 
-Both routes of this slice: -d over a directory of .sdf/.mol2 files, and
---library over a prepacked .npz written by the JAX `prepack` CLI. The CSVs
+The live routes: -d over a directory of .sdf/.mol2 files, and --library
+over a prepacked .npz written by the JAX `prepack` CLI (the stored route,
+--library_tiles, is in test_torch_tiled_store.py). The CSVs
 must list the same ligands with scores within rtol 2e-5 / atol 1e-4, and a
 screen resumed from <out>.partial must give the same CSV.
 """
@@ -110,11 +111,10 @@ def test_library_from_files_equals_jax_prepack(inputs, tmp_path):
 
 
 def test_unported_routes_exit_nonzero(inputs, tmp_path, capsys):
-    for flag in ("--library_tiles", "--smiles"):
-        rc = t_cli.main(_port_args("-p", str(inputs / "model.pm"), flag, "x",
-                                   "-o", str(tmp_path / "o.csv")))
-        assert rc != 0
-        assert "not yet ported" in capsys.readouterr().err
+    rc = t_cli.main(_port_args("-p", str(inputs / "model.pm"), "--smiles", "x",
+                               "-o", str(tmp_path / "o.csv")))
+    assert rc != 0
+    assert "not yet ported" in capsys.readouterr().err
 
 
 def test_cuda_without_card_is_an_error(inputs, tmp_path):

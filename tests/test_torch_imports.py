@@ -60,12 +60,17 @@ def test_every_module_imports_without_jax_and_builds_nothing():
         assert "triton" not in sys.modules
         assert not any(m == "jax" or m.startswith(("jax.", "pharmaconet_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
-        print(len(names))
+        print(" ".join(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    names = set(out.stdout.split())
+    assert len(names) >= 20
+    stored_route = {f"pharmaconet_tpu_torch.{m}" for m in (
+        "scoring.screen_v3", "scoring.leaf_tree", "scoring.tiled_store", "cli.prepack",
+        "cli.screening", "ops.screen_cuda", "ops.screen_ref", "native")}
+    assert stored_route <= names, stored_route - names
 
 
 def test_cuda_without_card_raises():

@@ -1,4 +1,4 @@
-"""The fused screening kernels (K1, K4, K5) of pharmaconet_tpu_torch.
+"""The screening kernels (K1-K5) of pharmaconet_tpu_torch.
 
 This file imports no JAX. The CPU tests hold the plain torch versions
 against each other (tile-local scans against the whole-row scans of the
@@ -23,6 +23,7 @@ from pharmaconet_tpu_torch.scoring.batch_screen import (
     build_batch,
     scan_fail,
 )
+from pharmaconet_tpu_torch.scoring.screen_tiles import tile_distances
 from pharmaconet_tpu_torch.scoring.tiled_pack import build_tiled_batch
 from pharmaconet_tpu_torch.synthetic import make_synthetic_ligands, make_synthetic_model
 
@@ -44,6 +45,21 @@ def _layouts(c: int, n: int = 24):
     tb = build_tiled_batch(pm, ligands)
     tiled = BatchScreener(pm, device="cpu").device_args_tiled(build_batch(pm, ligands))
     return tb, tiled
+
+
+def _stored_args(c: int, device, n: int = 24):
+    """K3's inputs (the one-pass pack's used tiles and their stored
+    distances) and K2's (the screener's v3 layout) for one batch."""
+    pm = PackedModel.from_model(make_synthetic_model(num_clusters=10, seed=c))
+    ligands = make_synthetic_ligands(n, num_conformers=c, seed=10 + c)
+    tb = build_tiled_batch(pm, ligands)
+    t = max(1, -(-tb.nst // 1024))
+    dt = tile_distances(tb.pos_blocks[:t], tb.uv[:t])
+    k3 = [torch.from_numpy(a).to(device) for a in (dt, tb.gtab[:t], tb.aux[:t])]
+    vb = BatchScreener(pm, engine="v3", device="cpu").build_vb(build_batch(pm, ligands))
+    k2 = [torch.from_numpy(a).to(device) for a in (vb.dt, vb.gid, vb.tab, vb.aux)]
+    ends = torch.from_numpy(vb.ends_padded).to(device)
+    return (k3, (tb.depth1, tb.depth2)), (k2, ends, dict(depth=vb.depth, mn_cap=vb.mn_cap))
 
 
 def _k1_args(tb, device):
@@ -119,8 +135,65 @@ def test_cuda_kernels_match_plain(cuda, c):
     assert torch.equal(got[c:], want[c:])  # pass counts are exact
     assert_scores_close(got, want)
     torch.cuda.synchronize()
-    assert screen_cuda.LAUNCHES == {"score_tiles_fused_rows": 1, "score_blocks_fused": 1,
+    assert screen_cuda.LAUNCHES == {"score_tiles_fused_rows": 1, "score_tiles_v3": 0,
+                                    "score_tiles_fused_dt": 0, "score_blocks_fused": 1,
                                     "gaussian_phase": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", CONFORMERS)
+def test_cuda_stored_kernels_match_plain(cuda, c):
+    """K3 and K2 (rows, and pairs compacted on the device) against their
+    plain versions on the card."""
+    (k3, d), (k2, ends, kw) = _stored_args(c, cuda)
+    screen_cuda.reset_launch_counts()
+    assert_scores_close(screen_cuda.score_tiles_fused_dt_rows(*k3, *d),
+                        screen_ref.score_tiles_fused_dt_rows(*k3, *d))
+    want = screen_ref.score_tiles_v3_rows(*k2, **kw)
+    assert_scores_close(screen_cuda.score_tiles_v3_rows(*k2, **kw), want)
+    assert_scores_close(screen_cuda.score_tiles_v3_pairs(*k2, ends, **kw),
+                        want.index_select(0, ends.long()))
+    torch.cuda.synchronize()
+    assert screen_cuda.LAUNCHES["score_tiles_fused_dt"] == 1
+    assert screen_cuda.LAUNCHES["score_tiles_v3"] == 2
+
+
+@pytest.mark.gpu
+def test_cuda_k2_refuses_a_table_beyond_shared_memory(cuda):
+    (_, _), (k2, _, kw) = _stored_args(2, cuda)
+    dt, gid, tab, aux = k2
+    big = torch.zeros(tab.shape[0], 512, tab.shape[2], device=cuda)
+    screen_cuda.reset_launch_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        screen_cuda.score_tiles_v3_rows(dt, gid, big, aux, **kw)
+    assert screen_cuda.LAUNCHES["score_tiles_v3"] == 0
+
+
+@pytest.mark.gpu
+def test_cuda_stored_route_matches_cpu(cuda, tmp_path):
+    """v3 (sparse leaf buckets, baked on the card) and v2 stores screen on
+    the card as on the CPU."""
+    from pharmaconet_tpu_torch.scoring.tiled_store import (
+        TiledStore,
+        write_tiled_store,
+        write_v3_store,
+    )
+
+    pm = PackedModel.from_model(make_synthetic_model(num_clusters=20, seed=0))
+    ligands = make_synthetic_ligands(96, seed=1)
+    names = [f"l{i}" for i in range(len(ligands))]
+    write_v3_store(tmp_path / "v3", pm, ligands, names, batch_size=32, verbose=False,
+                   device=cuda)
+    write_tiled_store(tmp_path / "v2", pm, ligands, names, batch_size=32, verbose=False)
+    want = BatchScreener(pm, device="cpu", engine="reference").score_packed(ligands)
+    for kind in ("v3", "v2"):
+        store = TiledStore(tmp_path / kind, pm)
+        for device in ("cpu", cuda):
+            screener = BatchScreener(pm, device=device)
+            got = [s for bi in range(store.n_batches)
+                   for s in screener.score_stored(store.load(bi))]
+            torch.testing.assert_close(torch.tensor(got), torch.tensor(want),
+                                       rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.gpu
@@ -128,7 +201,8 @@ def test_cuda_screener_matches_cpu(cuda):
     pm = PackedModel.from_model(make_synthetic_model(num_clusters=20, seed=0))
     ligands = make_synthetic_ligands(96, seed=1)
     want = BatchScreener(pm, device="cpu", engine="reference").score_packed(ligands)
-    for kw in ({}, dict(native_pack=False), dict(fused=False), dict(engine="reference")):
+    for kw in ({}, dict(native_pack=False), dict(fused=False), dict(engine="v3"),
+               dict(engine="reference")):
         got = BatchScreener(pm, device=cuda, **kw).score_packed(ligands)
         torch.testing.assert_close(torch.tensor(got), torch.tensor(want), rtol=RTOL, atol=ATOL)
 
