@@ -26,6 +26,15 @@ Phases, in order; any failure exits non-zero:
                reference engine; K2 held against its plain version and
                timed on the default store's first batch, which is the
                headline batch at the shape the store pins for every batch
+  7. modeling — pocket modeling at the published architecture's full width
+               (SwinV2-3D embed 96, depths 2/6/2/2, 64^3 x 33 input) on a
+               synthetic pocket with a synthesized checkpoint: K6 held
+               against its plain version on the pocket's padded atoms and
+               timed; the modeling CLI (K6 launch count reset just before,
+               read just after); its float32-segmentation run held against
+               PharmacoNet(voxelizer="reference"); how far the default TF32
+               mask decoder moves the maps (printed, not gated); the
+               host-clock stages of one pocket
 Then prints the {"kernels": [...]} line, the nvidia-smi name/power line, and
 last {"ok": true, "device": {...}}.
 """
@@ -65,11 +74,12 @@ def nvidia_smi_line() -> str:
 
 def phase_build() -> float:
     from pharmaconet_tpu_torch import native
-    from pharmaconet_tpu_torch.ops import screen_cuda
+    from pharmaconet_tpu_torch.ops import screen_cuda, voxelize_cuda
 
     t0 = time.perf_counter()
-    jobs = [screen_cuda.load_library, native.get_pack_tiled, native.get_block_packer,
-            native.get_prep_args, native.get_match_dfs, native.get_tile_dt]
+    jobs = [screen_cuda.load_library, voxelize_cuda.load_library, native.get_pack_tiled,
+            native.get_block_packer, native.get_prep_args, native.get_match_dfs,
+            native.get_tile_dt]
     with ThreadPoolExecutor(len(jobs)) as pool:
         for f in [pool.submit(j) for j in jobs]:
             f.result()
@@ -451,6 +461,227 @@ def phase_stored(pm, packed, names, ref, dev, kernels: dict, card: str) -> None:
         raise AssertionError("the v3 route without leaves never launched score_tiles_v3")
 
 
+# --------------------------------------------------------------------------
+# Phase 7: pocket modeling
+# --------------------------------------------------------------------------
+POCKET_SEED = 0
+CKPT_SEED, CKPT_SCALE = 23, 0.8  # synthesized checkpoint (see PERF.md, phase 7)
+K6_OPS_PER_PAIR = 76  # d2 (8), exp and its argument (2), 33 channel multiply-adds (66)
+VOXEL_TOL = 1e-5  # image atol/rtol against the plain version (sums in another order)
+
+
+def k6_pairs(args, dim: int = 64) -> int:
+    """(voxel, valid atom) pairs within the feature radius: the pairs
+    whose contributions K6 must compute for this pocket."""
+    from pharmaconet_tpu_torch import constants as C
+    from pharmaconet_tpu_torch.ops.voxelize import grid_coordinates
+
+    pos, _, valid, center = args
+    pos = pos[valid]
+    voxels = grid_coordinates(center, C.GRID_RESOLUTION, dim)
+    total = 0
+    for s in range(0, voxels.shape[0], 8192):
+        d2 = ((voxels[s : s + 8192, None, :] - pos[None]) ** 2).sum(-1)
+        total += int((d2 <= C.FEATURE_RADII**2).sum())
+    return total
+
+
+def k6_entry(data, dev) -> dict:
+    """K6 against its plain version on the pocket's padded atoms (the
+    4096 bucket, 64^3 grid): occupancy bit-equal, image within VOXEL_TOL."""
+    from pharmaconet_tpu_torch.ops import voxelize as plain, voxelize_cuda
+
+    args = [torch.from_numpy(a).to(dev) for a in (
+        data.atom_positions, data.atom_features, data.atom_valid, data.center)]
+    img, occ = voxelize_cuda.voxelize_pallas(*args)
+    want_img, want_occ = plain.voxelize(*args)
+    torch.cuda.synchronize()
+    occ_mism = int((occ != want_occ).sum())
+    err = float((img - want_img).abs().max())
+    if occ_mism or not torch.allclose(img, want_img, atol=VOXEL_TOL, rtol=VOXEL_TOL):
+        raise AssertionError(f"voxelize_pallas: kernel disagrees with its plain version "
+                             f"(max abs err {err}, occupancy mismatches {occ_mism})")
+    pairs = k6_pairs(args)
+    nbytes = sum(t.numel() * t.element_size() for t in args) + img.numel() * 4 + occ.numel()
+    ops = pairs * K6_OPS_PER_PAIR
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    entry = dict(
+        name="voxelize_pallas", route="cuda", source="pharmaconet_tpu_torch/csrc/voxelize.cu",
+        replaces="pharmaconet_tpu/ops/voxelize_pallas.py:145", launches=0, max_abs_err=err,
+        ms=time_ms(lambda: voxelize_cuda.voxelize_pallas(*args), 30),
+        plain_ms=time_ms(lambda: plain.voxelize(*args), 5),
+        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, occupancy_mismatches=occ_mism, atoms=int(data.atom_valid.sum()),
+        atom_bucket=int(data.atom_positions.shape[0]), pairs=pairs, bytes=nbytes, ops=ops,
+    )
+    log(f"  voxelize_pallas: {entry['atoms']} atoms (bucket {entry['atom_bucket']}), "
+        f"{pairs} voxel-atom pairs within 1.5 A, occupancy mismatches 0, "
+        f"max_abs_err={err:.3g} ms={entry['ms']:.4f} plain_ms={entry['plain_ms']:.3f} "
+        f"bound_ms={entry['bound_ms']:.4f} ({entry['bound_by']})")
+    return entry
+
+
+def run_modeling_cli(pdb: Path, center, ckpt: Path, out_dir: Path, dev, *extra: str):
+    """The modeling CLI on the card; returns (.pm path, wall s, K6 launches)."""
+    from pharmaconet_tpu_torch.cli.modeling import build_parser, main
+    from pharmaconet_tpu_torch.ops import voxelize_cuda
+
+    x, y, z = center
+    args = build_parser().parse_args([
+        "-p", str(pdb), "--center", str(x), str(y), str(z), "--prefix", "pocket",
+        "--out_dir", str(out_dir), "--weight_path", str(ckpt), "--device", str(dev), *extra])
+    voxelize_cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = voxelize_cuda.LAUNCHES["voxelize_pallas"]
+    if rc != 0:
+        raise AssertionError(f"modeling CLI {' '.join(extra)} exited {rc}")
+    if launches < 1:
+        raise AssertionError("the modeling CLI never launched voxelize_pallas")
+    return out_dir / f"pocket_{x}_{y}_{z}_model.pm", wall, launches
+
+
+def check_hotspots(name: str, got: list, want: list) -> float:
+    """Same hotspot list (type, position, score within 1e-6); returns the
+    largest map difference."""
+    if [(h["nci_type"], h["hotspot_position"]) for h in got] != \
+            [(h["nci_type"], h["hotspot_position"]) for h in want]:
+        raise AssertionError(f"{name}: hotspot lists differ ({len(got)} vs {len(want)})")
+    worst = 0.0
+    for a, b in zip(got, want):
+        if abs(a["hotspot_score"] - b["hotspot_score"]) > 1e-6:
+            raise AssertionError(f"{name}: hotspot score {a['hotspot_score']} vs "
+                                 f"{b['hotspot_score']}")
+        worst = max(worst, float(np.abs(a["point_map"] - b["point_map"]).max()))
+    return worst
+
+
+def check_pm(name: str, got, want) -> float:
+    """Same .pm node and cluster counts and node types; node scores within
+    the repo tolerance. Returns the largest node centre difference."""
+    if (len(got.nodes), len(got.node_clusters)) != (len(want.nodes), len(want.node_clusters)):
+        raise AssertionError(f"{name}: {len(got.nodes)} nodes / {len(got.node_clusters)} "
+                             f"clusters vs {len(want.nodes)} / {len(want.node_clusters)}")
+    worst = 0.0
+    for a, b in zip(got.nodes, want.nodes):
+        if a.type != b.type or abs(a.score - b.score) > ATOL + RTOL * abs(b.score):
+            raise AssertionError(f"{name}: node {a.index} {a.type} {a.score} vs "
+                                 f"{b.type} {b.score}")
+        worst = max(worst, float(np.abs(np.subtract(a.center, b.center)).max()))
+    return worst
+
+
+def modeling_stages(net, pdb: Path, center) -> dict[str, float]:
+    """Host-clock ms of one pocket's stages (median of 3), each ending in
+    a synchronize: parse, voxelize (K6), trunk (SwinV2-3D + FPN), heads
+    (cavity/token heads + gating), segmentation (mask decoder, per chunk
+    of 16), postprocess (mask/smooth/threshold + sparse compaction + the
+    host copy and rebuild, per chunk) and the graph build."""
+    from pharmaconet_tpu_torch.pharmacophore.model import PharmacophoreModel
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    runs = []
+    for _ in range(3):
+        data, t_parse = timed(lambda: net.parse(pdb, center=center))
+        (image, occ), t_vox = timed(lambda: net.voxelize(data))
+        pyramid, t_trunk = timed(lambda: net.trunk(image))
+        out, t_heads = timed(lambda: net.heads(data, pyramid, occ))
+        keep = np.nonzero(out["keep"].cpu().numpy())[0]
+        rel = out["rel_scores"].cpu().numpy()
+        tokens = torch.from_numpy(data.tokens).to(net.device)
+        chunk = net.segmentation_chunk
+        seg, post, infos = [], [], []
+        for s in range(0, len(keep), chunk):
+            idx = np.zeros(chunk, dtype=np.int64)
+            idx[: len(keep[s : s + chunk])] = keep[s : s + chunk]
+            valid = np.arange(chunk) < len(keep[s : s + chunk])
+            hot = tokens[torch.from_numpy(idx).to(net.device)]
+            feats = out["token_features"][torch.from_numpy(idx).to(net.device)]
+            logits, t_seg = timed(lambda: net.segment_logits(out, hot, feats))
+            (density, sparse), t_post = timed(lambda: net.postprocess(out, hot, logits, valid))
+            part, t_host = timed(lambda: net.hotspot_infos_from_outputs(
+                data, idx, valid, rel, density, sparse=sparse))
+            infos += part
+            seg.append(t_seg)
+            post.append(t_post + t_host)
+        _, t_graph = timed(lambda: PharmacophoreModel.create(
+            data.pdbblock, data.center, infos, size=net.grid_dim))
+        runs.append(dict(parse=t_parse, voxelize=t_vox, trunk=t_trunk, heads=t_heads,
+                         chunks=len(seg), segmentation_per_chunk=statistics.mean(seg),
+                         postprocess_per_chunk=statistics.mean(post), graph=t_graph))
+    return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+
+
+def phase_modeling(dev, kernels: dict, card: str) -> None:
+    from pharmaconet_tpu_torch.module import PharmacoNet
+    from pharmaconet_tpu_torch.network.convert import (
+        random_distributions,
+        save_torch_checkpoint,
+        synthesize_torch_state_dict,
+    )
+    from pharmaconet_tpu_torch.pharmacophore.model import PharmacophoreModel
+    from pharmaconet_tpu_torch.synthetic import write_synthetic_pocket
+
+    pdb = WORK / "pocket.pdb"
+    info = write_synthetic_pocket(pdb, seed=POCKET_SEED)
+    center = info["center"]
+    ckpt = WORK / "ckpt.tar"
+    save_torch_checkpoint(ckpt, synthesize_torch_state_dict(CKPT_SEED, CKPT_SCALE),
+                          random_distributions(), config={"synthesized": [CKPT_SEED, CKPT_SCALE]})
+    ref = PharmacoNet(weight_path=ckpt, voxelizer="reference", segmentation_precision="float32",
+                      device=dev, verbose=False)
+    data = ref.parse(pdb, center=center)
+    log(f"  pocket: {info['num_atoms']} atoms in {info['num_residues']} residues, "
+        f"{int(data.token_valid.sum())} tokens in the 64^3 box; checkpoint seed {CKPT_SEED} "
+        f"scale {CKPT_SCALE}")
+    kernels["voxelize_pallas"] = k6_entry(data, dev)
+
+    pm_path, wall, launches = run_modeling_cli(pdb, center, ckpt, WORK / "model", dev)
+    kernels["voxelize_pallas"]["launches"] = launches
+    pm = PharmacophoreModel.load(str(pm_path))
+    log(f"  modeling CLI (default precisions): {wall:.3f} s wall per pocket on {card} "
+        f"(network build + parse + model + .pm + visualization), {len(pm.nodes)} nodes, "
+        f"{len(pm.node_clusters)} clusters, K6 launches {launches}")
+
+    pm32_path, wall32, _ = run_modeling_cli(pdb, center, ckpt, WORK / "model32", dev,
+                                            "--segmentation_precision", "float32")
+    infos_ref = ref.create_density_maps(data)
+    if not 16 <= len(infos_ref) <= 128:
+        raise AssertionError(f"the pocket keeps {len(infos_ref)} hotspots, not 16-128")
+    kern = PharmacoNet(weight_path=ckpt, segmentation_precision="float32", device=dev,
+                       verbose=False)
+    map_err = check_hotspots("K6 vs reference voxelizer", kern.create_density_maps(data),
+                             infos_ref)
+    node_err = check_pm("CLI --segmentation_precision float32 vs reference",
+                        PharmacophoreModel.load(str(pm32_path)),
+                        PharmacophoreModel.create(data.pdbblock, data.center, infos_ref))
+    log(f"  float32 CLI ({wall32:.3f} s) vs PharmacoNet(voxelizer='reference'): "
+        f"{len(infos_ref)} hotspots equal (type, position, score), max map diff {map_err:.3g}, "
+        f"max node centre diff {node_err:.3g}")
+
+    tf32 = PharmacoNet(weight_path=ckpt, device=dev, verbose=False)
+    infos_tf32 = tf32.create_density_maps(data)
+    by_pos = {h["hotspot_position"]: h["point_map"] for h in infos_ref}
+    diffs = [float(np.abs(h["point_map"] - by_pos[h["hotspot_position"]]).max())
+             for h in infos_tf32 if h["hotspot_position"] in by_pos]
+    flips = sum(int(((h["point_map"] > 0) != (by_pos[h["hotspot_position"]] > 0)).sum())
+                for h in infos_tf32 if h["hotspot_position"] in by_pos)
+    log(f"  TF32 mask decoder (default) vs float32: {len(infos_tf32)} vs {len(infos_ref)} "
+        f"hotspots, max map diff {max(diffs, default=0.0):.3g}, {flips} voxels cross the "
+        f"0.5 threshold (not gated)")
+    stages = modeling_stages(tf32, pdb, center)
+    log("  stages of one pocket (host clock, median of 3, default precisions): "
+        + ", ".join(f"{k} {v:.2f}" + ("" if k == "chunks" else " ms") for k, v in stages.items()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -478,11 +709,13 @@ def main() -> int:
         phase_dir(model, dev)
         log("[6] stored route")
         phase_stored(pm, packed, names, ref, dev, kernels, smi)
+        log("[7] pocket modeling at full width")
+        phase_modeling(dev, kernels, smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
     order = ("score_tiles_fused_rows", "score_tiles_v3", "score_tiles_fused_dt",
-             "score_blocks_fused", "gaussian_phase")
+             "score_blocks_fused", "gaussian_phase", "voxelize_pallas")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 NVIDIA Hopper GPU.
 
 The package imports torch and never jax, and keeps its own copy of every
-module it needs. Screening's live route (`.pm` model + ligand library ->
-ranked CSV) runs on the card through hand-written CUDA kernels
-(`csrc/screen_fused.cu`); entry points take an explicit `device` and use
+module it needs. Pocket modeling (protein + centre -> `.pm`, `module.py`)
+and screening (`.pm` + ligand library -> ranked CSV) run on the card
+through hand-written CUDA kernels (`csrc/voxelize.cu`,
+`csrc/screen_fused.cu`); entry points take an explicit `device` and use
 the card unless the caller asks for the CPU.
 """
 
@@ -13,6 +14,7 @@ __version__ = "0.1.0"
 from .pharmacophore.model import PharmacophoreModel
 
 _LAZY = {
+    "PharmacoNet": ("pharmaconet_tpu_torch.module", "PharmacoNet"),
     "BatchScreener": ("pharmaconet_tpu_torch.scoring.batch_screen", "BatchScreener"),
     "Ligand": ("pharmaconet_tpu_torch.scoring.ligand", "Ligand"),
 }

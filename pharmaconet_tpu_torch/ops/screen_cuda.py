@@ -89,12 +89,12 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     all lie on one CUDA device (kernel); raises otherwise."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
-        raise ValueError(f"screening tensors span several devices: {devices}")
+        raise ValueError(f"kernel arguments span several devices: {devices}")
     dev = devices.pop()
     if dev.type == "cpu":
         return True
     if dev.type != "cuda":
-        raise ValueError(f"screening kernels run on cuda or cpu tensors, not {dev}")
+        raise ValueError(f"the kernels run on cuda or cpu tensors, not {dev}")
     return False
 
 

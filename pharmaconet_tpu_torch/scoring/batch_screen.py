@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..constants import DEFAULT_WEIGHTS, MAX_MATCH_DEPTH
+from ..device import resolve_device
 from ..ops import screen_cuda
 from .graph_match import priority_fn
 from .ligand import Ligand
@@ -646,20 +647,6 @@ def _build_batch_native(
 # ==========================================================================
 # Device half (plain torch; the "reference" engine)
 # ==========================================================================
-def resolve_device(device: str | torch.device) -> torch.device:
-    """torch.device for a screener. Asking for CUDA without a visible card
-    raises: the port never moves to the CPU on its own."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch sees no CUDA device; "
-            "pass device='cpu' to screen on the host"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported screening device {device!r}")
-    return dev
-
-
 def _shift_right(a: torch.Tensor, shift: int, fill) -> torch.Tensor:
     """a shifted right by `shift` along its last axis, `fill` shifted in."""
     n = a.shape[-1]

@@ -54,9 +54,9 @@ def test_every_module_imports_without_jax_and_builds_nothing():
         for name in names:
             importlib.import_module(name)
         from pharmaconet_tpu_torch import native
-        from pharmaconet_tpu_torch.ops import screen_cuda
+        from pharmaconet_tpu_torch.ops import screen_cuda, voxelize_cuda
         assert calls == [], calls
-        assert native._state == {} and screen_cuda._lib is None
+        assert native._state == {} and screen_cuda._lib is None and voxelize_cuda._lib is None
         assert "triton" not in sys.modules
         assert not any(m == "jax" or m.startswith(("jax.", "pharmaconet_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
@@ -71,6 +71,12 @@ def test_every_module_imports_without_jax_and_builds_nothing():
         "scoring.screen_v3", "scoring.leaf_tree", "scoring.tiled_store", "cli.prepack",
         "cli.screening", "ops.screen_cuda", "ops.screen_ref", "native")}
     assert stored_route <= names, stored_route - names
+    modeling = {f"pharmaconet_tpu_torch.{m}" for m in (
+        "chem.pdb", "chem.protein", "chem.pocket", "chem.templates", "data.featurizer",
+        "ops.voxelize", "ops.voxelize_cuda", "ops.postprocess", "network.layers",
+        "network.swin3d", "network.fpn", "network.heads", "network.model", "network.convert",
+        "module", "utils.visualize", "cli.modeling")}
+    assert modeling <= names, modeling - names
 
 
 def test_cuda_without_card_raises():

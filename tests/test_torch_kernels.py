@@ -1,4 +1,5 @@
-"""The screening kernels (K1-K5) of pharmaconet_tpu_torch.
+"""The screening kernels (K1-K5) and the voxelizer (K6) of
+pharmaconet_tpu_torch.
 
 This file imports no JAX. The CPU tests hold the plain torch versions
 against each other (tile-local scans against the whole-row scans of the
@@ -16,7 +17,8 @@ import threading
 import pytest
 import torch
 
-from pharmaconet_tpu_torch.ops import screen_cuda, screen_ref
+from pharmaconet_tpu_torch.ops import screen_cuda, screen_ref, voxelize_cuda
+from pharmaconet_tpu_torch.ops.voxelize import voxelize
 from pharmaconet_tpu_torch.scoring.batch_screen import (
     BatchScreener,
     PackedModel,
@@ -232,3 +234,39 @@ def test_cuda_screener_keeps_its_stream_across_threads(cuda):
     worker.join(timeout=120)
     assert not worker.is_alive() and len(got) == 1
     torch.testing.assert_close(torch.tensor(got[0]), torch.tensor(want), rtol=RTOL, atol=ATOL)
+
+
+def _pocket_atoms(tmp_path, device, keep: int | None = None):
+    """The padded atom arrays of a synthetic pocket as parsed for
+    modeling (the 4096 bucket); `keep` marks only the first atoms valid
+    and cuts the arrays to a ragged length."""
+    from types import SimpleNamespace
+
+    from pharmaconet_tpu_torch.module import PharmacoNet
+    from pharmaconet_tpu_torch.synthetic import write_synthetic_pocket
+
+    info = write_synthetic_pocket(tmp_path / "pocket.pdb", seed=2)
+    net = SimpleNamespace(grid_dim=64, get_center=PharmacoNet.get_center)
+    data = PharmacoNet.parse(net, tmp_path / "pocket.pdb", center=info["center"])
+    arrays = [data.atom_positions, data.atom_features, data.atom_valid]
+    if keep is not None:
+        arrays = [a[: keep + 37].copy() for a in arrays]
+        arrays[2][keep:] = False
+    return [torch.from_numpy(a).to(device) for a in (*arrays, data.center)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim,keep", [(64, None), (64, 1001), (40, 333)],
+                         ids=["pocket", "ragged-atoms", "ragged-grid"])
+def test_cuda_voxelizer_matches_plain(cuda, tmp_path, dim, keep):
+    """K6 on the card: occupancy bit-equal to the plain version, the image
+    within atol/rtol 1e-5 (atoms summed in another order)."""
+    args = _pocket_atoms(tmp_path, cuda, keep)
+    voxelize_cuda.reset_launch_counts()
+    img, occ = voxelize_cuda.voxelize_pallas(*args, dim=dim)
+    torch.cuda.synchronize()
+    assert voxelize_cuda.LAUNCHES["voxelize_pallas"] == 1
+    want_img, want_occ = voxelize(*args, dim=dim)
+    assert img.shape == (dim, dim, dim, 33) and occ.dtype == torch.bool
+    assert torch.equal(occ, want_occ) and occ.any()
+    torch.testing.assert_close(img, want_img, atol=1e-5, rtol=1e-5)
