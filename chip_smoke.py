@@ -35,8 +35,19 @@ Phases, in order; any failure exits non-zero:
                PharmacoNet(voxelizer="reference"); how far the default TF32
                mask decoder moves the maps (printed, not gated); the
                host-clock stages of one pocket
+  8. probes  — the probe kernels P1-P4 at the headline batch: each probe
+               entry point (python -m pharmaconet_tpu_torch.probes.*) run
+               once as a subprocess, which checks and times its kernels;
+               their launch counts and times read from its last line; then,
+               on inputs from the probe modules' own prep, every kernel and
+               mode held against its plain version on the card (P1/P2 pass
+               counts and P4 ohbf16's distances exactly equal), P3 full and
+               every P4 mode against K1's output on the same tiles
 Then prints the {"kernels": [...]} line, the nvidia-smi name/power line, and
-last {"ok": true, "device": {...}}.
+last {"ok": true, "device": {...}}. A kernel's `ms` is one call between two
+CUDA events (host work included), `stream_ms` its time per call back to
+back with no wait for the host (`stream_gapless`), and `enqueue_ms` the
+host's time to enqueue one (probes/timing.py).
 """
 
 from __future__ import annotations
@@ -56,8 +67,11 @@ import torch
 RTOL, ATOL = 2e-5, 1e-4  # repo score tolerance
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 F32_OPS_PER_S = 67e12  # H100 SXM published f32 rate outside the tensor cores
-WORK = Path(__file__).resolve().parent / ".smoke_work"
+REPO = Path(__file__).resolve().parent
+WORK = REPO / ".smoke_work"
 N_BATCH, N_BATCHES, N_FILES = 2048, 4, 200
+SCREEN_CU = "pharmaconet_tpu_torch/csrc/screen_fused.cu"
+SCREEN_PALLAS = "pharmaconet_tpu/ops/screen_pallas.py"
 
 
 def log(msg: str) -> None:
@@ -86,22 +100,6 @@ def phase_build() -> float:
     return time.perf_counter() - t0
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median device time of one call, from CUDA events around each call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> tuple[float, int]:
     """Max abs error and -1 mismatches; raises outside the tolerance."""
     mism = int(((got == -1.0) != (want == -1.0)).sum())
@@ -112,13 +110,15 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> tuple[float, in
     return err, mism
 
 
-def f32_ops(c: int, rows: int, entries: int, distance: bool, depths: tuple) -> int:
+def f32_ops(c: int, rows: int, entries: int, distance: bool, depths: tuple,
+            per_entry: int = 9) -> int:
     """f32 operations the kernels must do (exp and sqrt as one): the
     distance, 9 per conformer of each row where it is rebuilt; 9 per
-    (valid Gaussian entry, conformer); and where there are scans, one add
-    per scan step and stacked value plus 3 per conformer in the tails.
-    `entries` counts this run's Gaussian entries with weight > 0."""
-    ops = 9 * c * entries + (9 * c * rows if distance else 0)
+    (valid Gaussian entry, conformer), 7 without the exp and its -1/2; and
+    where there are scans, one add per scan step and stacked value plus 3
+    per conformer in the tails. `entries` counts this run's Gaussian
+    entries with weight > 0."""
+    ops = per_entry * c * entries + (9 * c * rows if distance else 0)
     if depths:
         ops += rows * (2 * c * sum(depths) + 3 * c)
     return ops
@@ -128,19 +128,40 @@ def valid_entries(weights: torch.Tensor) -> int:
     return int((weights > 0).sum())
 
 
-def kernel_entry(name, source_line, fn, plain, inputs, out, ops, tiles):
+def kernel_times(name: str, fn):
+    """The kernel's Times (probes/timing.py): one call between two events
+    (`ms`), and back to back with the host's enqueue time per call."""
+    from pharmaconet_tpu_torch.probes.timing import time_rounds
+
+    return time_rounds(torch.device("cuda"), {name: fn})[name]
+
+
+def timing_fields(times, plain) -> dict:
+    from pharmaconet_tpu_torch.probes.timing import time_ms
+
+    return dict(ms=times.ms, plain_ms=time_ms(plain, 5), stream_ms=times.stream_ms,
+                enqueue_ms=times.enqueue_ms, stream_gapless=times.gapless)
+
+
+def kernel_entry(name, replaces, fn, plain, inputs, out, ops, tiles, source=SCREEN_CU,
+                 times=None):
+    """Holds `out` (the kernel's output) against `plain()`, times both
+    (the kernel here unless `times` brings it from a probe's run) and
+    computes the bound: each of `inputs` read once and `out` written once
+    over the HBM rate, or `ops` f32 operations over the f32 rate."""
     err, mism = compare(name, out, plain())
     nbytes = sum(t.numel() * t.element_size() for t in inputs) + out.numel() * 4
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     entry = dict(
-        name=name, route="cuda", source="pharmaconet_tpu_torch/csrc/screen_fused.cu",
-        replaces=f"pharmaconet_tpu/ops/screen_pallas.py:{source_line}",
-        launches=0, max_abs_err=err, ms=time_ms(fn, 30), plain_ms=time_ms(plain, 5),
+        name=name, route="cuda", source=source, replaces=replaces, launches=0,
+        max_abs_err=err, **timing_fields(times or kernel_times(name, fn), plain),
         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=None, minus1_mismatches=mism, tiles=tiles, bytes=nbytes, ops=ops,
     )
     log(f"  {name}: T={tiles} max_abs_err={err:.3g} -1 mismatches={mism} "
-        f"ms={entry['ms']:.4f} plain_ms={entry['plain_ms']:.3f} bound_ms={entry['bound_ms']:.4f}")
+        f"ms={entry['ms']:.4f} stream_ms={entry['stream_ms']:.4f} "
+        f"(gapless {entry['stream_gapless']}) enqueue_ms={entry['enqueue_ms']:.4f} "
+        f"plain_ms={entry['plain_ms']:.3f} bound_ms={entry['bound_ms']:.4f}")
     return entry
 
 
@@ -161,7 +182,7 @@ def phase_kernels(pm, ligands, dev) -> dict:
     tiles, c = k1_in[0].shape[0], k1_in[0].shape[1] // 3
     k1 = lambda: screen_cuda.score_tiles_fused_rows(*k1_in, *d)  # noqa: E731
     out["score_tiles_fused_rows"] = kernel_entry(
-        "score_tiles_fused_rows", 463, k1,
+        "score_tiles_fused_rows", f"{SCREEN_PALLAS}:463", k1,
         lambda: screen_ref.score_tiles_fused_rows(*k1_in, *d),
         k1_in, k1(), f32_ops(c, tiles * 1024, valid_entries(k1_in[2][:, 2]), True, d), tiles)
 
@@ -172,7 +193,7 @@ def phase_kernels(pm, ligands, dev) -> dict:
     tiles3 = k3_in[0].shape[0]
     k3 = lambda: screen_cuda.score_tiles_fused_dt_rows(*k3_in, *d)  # noqa: E731
     out["score_tiles_fused_dt"] = kernel_entry(
-        "score_tiles_fused_dt", 262, k3, lambda: screen_ref.score_tiles_fused_dt_rows(*k3_in, *d),
+        "score_tiles_fused_dt", f"{SCREEN_PALLAS}:262", k3, lambda: screen_ref.score_tiles_fused_dt_rows(*k3_in, *d),
         k3_in, k3(), f32_ops(c, tiles3 * 1024, valid_entries(k3_in[1][:, 2]), False, d), tiles3)
 
     screener = BatchScreener(pm, device=dev)
@@ -187,12 +208,12 @@ def phase_kernels(pm, ligands, dev) -> dict:
     k4 = lambda: screen_cuda.score_blocks_fused(*g_in, *rows_in, *d)  # noqa: E731
     entries = valid_entries(g_in[4])
     out["score_blocks_fused"] = kernel_entry(
-        "score_blocks_fused", 516, k4,
+        "score_blocks_fused", f"{SCREEN_PALLAS}:516", k4,
         lambda: screen_ref.score_blocks_fused(*g_in, *rows_in, *d),
         g_in + rows_in, k4(), f32_ops(c, tiles * 1024, entries, True, d), tiles)
     k5 = lambda: screen_cuda.gaussian_phase(*g_in)  # noqa: E731
     out["gaussian_phase"] = kernel_entry(
-        "gaussian_phase", 114, k5, lambda: screen_ref.gaussian_phase(*g_in),
+        "gaussian_phase", f"{SCREEN_PALLAS}:114", k5, lambda: screen_ref.gaussian_phase(*g_in),
         g_in, k5(), f32_ops(c, tiles * 1024, entries, True, ()), tiles)
     torch.cuda.synchronize()
     return out
@@ -210,7 +231,7 @@ def k2_entry(sb, dev) -> dict:
     per_row = (w2 > 0).sum(-1).gather(1, k2_in[1].long())  # valid entries of each row
     k2 = lambda: screen_cuda.score_tiles_v3_rows(*k2_in, **kw)  # noqa: E731
     entry = kernel_entry(
-        "score_tiles_v3", 374, k2, lambda: screen_ref.score_tiles_v3_rows(*k2_in, **kw),
+        "score_tiles_v3", f"{SCREEN_PALLAS}:374", k2, lambda: screen_ref.score_tiles_v3_rows(*k2_in, **kw),
         k2_in, k2(),
         f32_ops(k2_in[0].shape[1], k2_in[1].numel(), int(per_row.sum()), False, (sb.depth,)),
         k2_in[0].shape[0])
@@ -505,18 +526,20 @@ def k6_entry(data, dev) -> dict:
     nbytes = sum(t.numel() * t.element_size() for t in args) + img.numel() * 4 + occ.numel()
     ops = pairs * K6_OPS_PER_PAIR
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    kernel = lambda: voxelize_cuda.voxelize_pallas(*args)  # noqa: E731
     entry = dict(
         name="voxelize_pallas", route="cuda", source="pharmaconet_tpu_torch/csrc/voxelize.cu",
         replaces="pharmaconet_tpu/ops/voxelize_pallas.py:145", launches=0, max_abs_err=err,
-        ms=time_ms(lambda: voxelize_cuda.voxelize_pallas(*args), 30),
-        plain_ms=time_ms(lambda: plain.voxelize(*args), 5),
+        **timing_fields(kernel_times("voxelize_pallas", kernel), lambda: plain.voxelize(*args)),
         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=None, occupancy_mismatches=occ_mism, atoms=int(data.atom_valid.sum()),
         atom_bucket=int(data.atom_positions.shape[0]), pairs=pairs, bytes=nbytes, ops=ops,
     )
     log(f"  voxelize_pallas: {entry['atoms']} atoms (bucket {entry['atom_bucket']}), "
         f"{pairs} voxel-atom pairs within 1.5 A, occupancy mismatches 0, "
-        f"max_abs_err={err:.3g} ms={entry['ms']:.4f} plain_ms={entry['plain_ms']:.3f} "
+        f"max_abs_err={err:.3g} ms={entry['ms']:.4f} stream_ms={entry['stream_ms']:.4f} "
+        f"(gapless {entry['stream_gapless']}) enqueue_ms={entry['enqueue_ms']:.4f} "
+        f"plain_ms={entry['plain_ms']:.3f} "
         f"bound_ms={entry['bound_ms']:.4f} ({entry['bound_by']})")
     return entry
 
@@ -682,6 +705,141 @@ def phase_modeling(dev, kernels: dict, card: str) -> None:
         + ", ".join(f"{k} {v:.2f}" + ("" if k == "chunks" else " ms") for k, v in stages.items()))
 
 
+# --------------------------------------------------------------------------
+# Phase 8: the probe kernels P1-P4
+# --------------------------------------------------------------------------
+PROBES = ("probe_pallas_screen", "probe_fused_split", "probe_kernel_r3")
+
+
+def probe_row_entries(pm, ligands, cuda, times: dict) -> dict:
+    """P1 and P2 on the probe prep's untiled rows (the reference engine's
+    half-octave bucket rounded up to whole tiles), with their times from
+    the probe's run."""
+    from pharmaconet_tpu_torch.ops import screen_cuda, screen_ref
+    from pharmaconet_tpu_torch.probes import prep
+
+    rb = prep.row_batch(pm, ligands)
+    gi, lt = prep.gather_inputs(rb), prep.local_tables(rb)
+    tables = [cuda(rb.muT), cuda(rb.invT), cuda(rb.winvT)]
+    uv = cuda(lt.uv_loc)
+    c, rows, tiles = gi.d_table.shape[1], rb.ns_t, rb.ns_t // 1024
+    entries = valid_entries(tables[2])
+    log(f"  P1/P2 rows: {rb.ns_real} real of {rows} ({tiles} tiles), NU {gi.d_table.shape[0]}, "
+        f"tile node tables: max union {lt.max_union}, {lt.overflow} overflowing")
+    p1_in = [cuda(gi.d_table), cuda(gi.slots), *tables]
+    pos = cuda(lt.pos_blocks)
+    out = {}
+    for name, replaces, args, inputs, distance in (  # inputs: what the bound counts
+        ("gaussian_phase_gather", "probes/probe_pallas_screen.py:139", p1_in, p1_in, False),
+        ("gaussian_phase_local", "probes/probe_pallas_screen.py:235",
+         [pos, uv[0], uv[1], *tables], [pos, uv, *tables], True),
+    ):
+        fn = lambda n=name, a=args: getattr(screen_cuda, n)(*a)  # noqa: E731
+        plain = lambda n=name, a=args: getattr(screen_ref, n)(*a)  # noqa: E731
+        got = fn()
+        if not torch.equal(got[c:], plain()[c:]):
+            raise AssertionError(f"{name}: pass counts differ from the plain version's")
+        out[name] = kernel_entry(name, replaces, fn, plain, inputs, got,
+                                 f32_ops(c, rows, entries, distance, ()), tiles,
+                                 times=times[name])
+    return out
+
+
+def probe_tile_entries(pm, ligands, cuda, times: dict) -> dict:
+    """P3's ablations and P4's variants on K1's tiles: each against its
+    plain version, P3 full and every P4 mode against K1's output, P4
+    ohbf16's distances against the prepack-time distances; their times
+    from the probes' runs."""
+    from pharmaconet_tpu_torch.ops import screen_cuda, screen_ref
+    from pharmaconet_tpu_torch.probes import prep
+    from pharmaconet_tpu_torch.scoring.screen_tiles import tile_distances
+
+    ti = prep.tiled_inputs(pm, ligands, threads=8)
+    x = [cuda(a) for a in ti.arrays]
+    d = (ti.depth1, ti.depth2)
+    tiles, c = x[0].shape[0], x[0].shape[1] // 3
+    rows, entries = tiles * 1024, valid_entries(x[2][:, 2])
+    k1 = screen_cuda.score_tiles_fused_rows(*x, *d)
+    out = {}
+    for mode in screen_ref.ABLATIONS:
+        noscan, noexp = mode in ("noscan", "gauss0"), mode in ("noexp", "gauss0")
+        nohot = mode in ("nohot", "gauss0")
+        name = f"score_tiles_fused_ablation[{mode}]"
+        fn = lambda m=mode: screen_cuda.score_tiles_fused_ablation(*x, *d, m)  # noqa: E731
+        got = fn()
+        read = [x[0][:, 0, 0]] if nohot else x[:2]  # what the mode must read
+        read += [x[2]] + ([] if noscan else [x[3]])
+        ops = f32_ops(c, rows, entries, not nohot, () if noscan else d, 7 if noexp else 9)
+        out[name] = kernel_entry(
+            name, "probes/probe_fused_split.py:119", fn,
+            lambda m=mode: screen_ref.score_tiles_fused_ablation(*x, *d, m), read, got,
+            ops + (c * rows if noscan else 0), tiles, times=times[name])
+        if mode == "full":
+            err, _ = compare(f"{name} vs K1", got, k1)
+            log(f"    full vs K1: max abs err {err:.3g}, bit-equal {torch.equal(got, k1)}")
+    k1_ops = f32_ops(c, rows, entries, True, d)
+    for mode in screen_ref.VARIANTS:
+        name = f"score_tiles_fused_variant[{mode}]"
+        fn = lambda m=mode: screen_cuda.score_tiles_fused_variant(*x, *d, m)  # noqa: E731
+        got = fn()
+        out[name] = kernel_entry(
+            name, "probes/probe_kernel_r3.py:137", fn,
+            lambda m=mode: screen_ref.score_tiles_fused_variant(*x, *d, m), x, got, k1_ops,
+            tiles, times=times[name])
+        err, _ = compare(f"{name} vs K1", got, k1)
+        log(f"    {mode} vs K1: max abs err {err:.3g}, bit-equal {torch.equal(got, k1)}")
+    _, dist = screen_cuda.score_tiles_fused_variant(*x, *d, "ohbf16", return_distances=True)
+    want = tile_distances(ti.pos_blocks, ti.uv, native=False)
+    differ = int((dist.cpu().numpy() != want).sum())
+    if differ:
+        raise AssertionError(f"ohbf16: {differ} distances differ from the prepack-time ones")
+    log(f"    ohbf16 distances: all {want.size} bit-equal to the prepack-time distances")
+    return out
+
+
+def run_probe(name: str, dev) -> dict:
+    """One probe entry point on the device in a subprocess; returns its
+    last line (launch counts and times)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"pharmaconet_tpu_torch.probes.{name}", "--device", str(dev),
+         "--ligands", str(N_BATCH)],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"{name} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    log(f"  python -m pharmaconet_tpu_torch.probes.{name} ({time.perf_counter() - t0:.1f} s):")
+    for line in lines[:-1]:
+        log(f"    {line}")
+    return json.loads(lines[-1])
+
+
+def phase_probes(pm, ligands, dev, kernels: dict) -> None:
+    from pharmaconet_tpu_torch.probes.timing import Times
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    counts, times = {}, {}
+    for probe in PROBES:
+        result = run_probe(probe, dev)
+        runs = {**result["launches"], **result["mode_launches"]}
+        for name, n in runs.items():
+            if n < 1:
+                raise AssertionError(f"{probe} never launched {name}")
+        log(f"    launches: {runs}")
+        counts.update(runs)
+        times.update({name: Times(**t) for name, t in result["times"].items()})
+    entries = {**probe_row_entries(pm, ligands, cuda, times),
+               **probe_tile_entries(pm, ligands, cuda, times)}
+    torch.cuda.synchronize()
+    for name, entry in entries.items():
+        entry["launches"] = counts[name]
+    kernels.update(entries)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -711,12 +869,15 @@ def main() -> int:
         phase_stored(pm, packed, names, ref, dev, kernels, smi)
         log("[7] pocket modeling at full width")
         phase_modeling(dev, kernels, smi)
+        log("[8] probe kernels P1-P4 (headline batch)")
+        phase_probes(pm, make_synthetic_ligands(N_BATCH, num_conformers=4, seed=1), dev, kernels)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
     order = ("score_tiles_fused_rows", "score_tiles_v3", "score_tiles_fused_dt",
              "score_blocks_fused", "gaussian_phase", "voxelize_pallas")
-    print(json.dumps({"kernels": [kernels[k] for k in order]}))
+    probes = [k for k in kernels if k not in order]  # P1-P4, in phase 8's order
+    print(json.dumps({"kernels": [kernels[k] for k in (*order, *probes)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Wrappers of the hand-written CUDA screening kernels (K1-K5).
+"""Wrappers of the hand-written CUDA screening kernels (K1-K5) and of the
+probe kernels (P1-P4).
 
 The kernels live in csrc/screen_fused.cu (see its header for what each
 replaces and what bounds it). The source is compiled with nvcc for sm_90a
@@ -10,7 +11,8 @@ on the CPU. For CUDA tensors it launches the kernel on the current stream
 of the tensors' device, or raises: a failed build or launch is never
 turned into a call to the plain version. `LAUNCHES` counts kernel
 launches, one per launch, so a run can show that its path went through the
-kernels.
+kernels; `MODE_LAUNCHES` splits the counts of P3 and P4 by mode
+("score_tiles_fused_ablation[noscan]", ...).
 """
 
 from __future__ import annotations
@@ -34,15 +36,25 @@ BLOCK_P = 8
 MAX_CONFORMERS = 8
 MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90
 
+ABLATION_FLAGS = {"full": 0, "noscan": 1, "noexp": 2, "nohot": 4, "gauss0": 7}  # P3
+VARIANT_IDS = {"full": 0, "b4d": 1, "ohbf16": 2}  # P4
+
 LAUNCHES = {"score_tiles_fused_rows": 0, "score_tiles_v3": 0, "score_tiles_fused_dt": 0,
-            "score_blocks_fused": 0, "gaussian_phase": 0}
+            "score_blocks_fused": 0, "gaussian_phase": 0, "gaussian_phase_gather": 0,
+            "gaussian_phase_local": 0, "score_tiles_fused_ablation": 0,
+            "score_tiles_fused_variant": 0}
+MODE_LAUNCHES = {
+    **{f"score_tiles_fused_ablation[{m}]": 0 for m in ABLATION_FLAGS},
+    **{f"score_tiles_fused_variant[{m}]": 0 for m in VARIANT_IDS},
+}
 
 _lib: ctypes.CDLL | None = None
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, MODE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def nvcc_path() -> str:
@@ -76,6 +88,14 @@ def load_library() -> ctypes.CDLL:
         lib.screen_tiles_fused_dt.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
         lib.screen_tiles_v3.restype = i
         lib.screen_tiles_v3.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
+        lib.screen_gauss_gather.restype = i
+        lib.screen_gauss_gather.argtypes = [vp, ctypes.c_longlong, vp, vp, vp, vp, vp, i, i, vp]
+        lib.screen_gauss_local.restype = i
+        lib.screen_gauss_local.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, vp]
+        lib.screen_tiles_fused_ablation.restype = i
+        lib.screen_tiles_fused_ablation.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+        lib.screen_tiles_fused_variant.restype = i
+        lib.screen_tiles_fused_variant.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
         lib.screen_max_conformers.restype = i
         lib.screen_max_smem.restype = i
         if (lib.screen_max_conformers(), lib.screen_max_smem()) != (MAX_CONFORMERS, MAX_SMEM):
@@ -126,9 +146,27 @@ def _conformer_count(t: int, c: int) -> tuple[int, int]:
     return t, c
 
 
-def _launch(name: str, device: torch.device, fn, *args) -> None:
+def _tile_major(pos_blocks, uv, gtab, aux) -> tuple[int, int]:
+    """(T, C) of K1's tile-major inputs, checked."""
+    t, c = _conformers(pos_blocks)
+    _check("pos_blocks", pos_blocks, torch.float32, (t, 3 * c, NODE_CAP))
+    _check("uv", uv, torch.int32, (t, TILE))
+    _check("gtab", gtab, torch.float32, (t, 3, BLOCK_P, TILE))
+    _check("aux", aux, torch.float32, (t, 7, TILE))
+    return t, c
+
+
+def _row_tables(ns: int, muT, invT, winvT) -> None:
+    """Checks the row layout's Gaussian tables [P, NS], NS whole tiles."""
+    if ns % TILE:
+        raise ValueError(f"the row count {ns} is not a multiple of TILE {TILE}")
+    for name, a in (("muT", muT), ("invT", invT), ("winvT", winvT)):
+        _check(name, a, torch.float32, (BLOCK_P, ns))
+
+
+def _launch(name: str, device: torch.device, fn, *args, mode: str | None = None) -> None:
     """Launch `fn` on the device's current stream (tensors pass as their
-    data pointers); raises on a launch error."""
+    data pointers, None as a null pointer); raises on a launch error."""
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -136,6 +174,8 @@ def _launch(name: str, device: torch.device, fn, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed (error {rc})")
     LAUNCHES[name] += 1
+    if mode is not None:
+        MODE_LAUNCHES[f"{name}[{mode}]"] += 1
 
 
 def score_tiles_fused_rows(
@@ -151,11 +191,7 @@ def score_tiles_fused_rows(
     on failed cross pairs)."""
     if _on_cpu(pos_blocks, uv, gtab, aux):
         return screen_ref.score_tiles_fused_rows(pos_blocks, uv, gtab, aux, depth1, depth2)
-    t, c = _conformers(pos_blocks)
-    _check("pos_blocks", pos_blocks, torch.float32, (t, 3 * c, NODE_CAP))
-    _check("uv", uv, torch.int32, (t, TILE))
-    _check("gtab", gtab, torch.float32, (t, 3, BLOCK_P, TILE))
-    _check("aux", aux, torch.float32, (t, 7, TILE))
+    t, c = _tile_major(pos_blocks, uv, gtab, aux)
     lib = load_library()
     out = torch.empty((t * TILE, c), dtype=torch.float32, device=pos_blocks.device)
     _launch("score_tiles_fused_rows", pos_blocks.device, lib.screen_tiles_fused,
@@ -271,8 +307,7 @@ def score_blocks_fused(
     ns = t * TILE
     _check("pos_blocks", pos_blocks, torch.float32, (t, 3 * c, NODE_CAP))
     _check("uv_packed", uv_packed, torch.int32, (1, ns))
-    for name, a in (("muT", muT), ("invT", invT), ("winvT", winvT)):
-        _check(name, a, torch.float32, (BLOCK_P, ns))
+    _row_tables(ns, muT, invT, winvT)
     for k, a in enumerate(rows):
         _check(f"row {k}", a, torch.float32, (ns,))
     lib = load_library()
@@ -299,10 +334,125 @@ def gaussian_phase(
     ns = t * TILE
     _check("pos_blocks", pos_blocks, torch.float32, (t, 3 * c, NODE_CAP))
     _check("uv_packed", uv_packed, torch.int32, (1, ns))
-    for name, a in (("muT", muT), ("invT", invT), ("winvT", winvT)):
-        _check(name, a, torch.float32, (BLOCK_P, ns))
+    _row_tables(ns, muT, invT, winvT)
     lib = load_library()
     out = torch.empty((2 * c, ns), dtype=torch.float32, device=pos_blocks.device)
     _launch("gaussian_phase", pos_blocks.device, lib.screen_gauss_phase,
             pos_blocks, uv_packed, muT, invT, winvT, out, t, c)
     return out
+
+
+# --------------------------------------------------------------------------
+# Probe kernels P1-P4 (measurement variants of K1 and K5; see
+# pharmaconet_tpu_torch/probes/)
+# --------------------------------------------------------------------------
+def gaussian_phase_gather(
+    d_table: torch.Tensor,  # [NU, C] f32 unique conformer distances
+    slots: torch.Tensor,  # [NS] i32 row -> d_table row
+    muT: torch.Tensor,  # [P, NS] f32
+    invT: torch.Tensor,
+    winvT: torch.Tensor,
+) -> torch.Tensor:
+    """P1: the Gaussian phase with each row's distances gathered from
+    d_table by slot. Returns stacked [2C, NS] (scores, then pass counts).
+    A slot outside the table gives NaN scores on the card."""
+    if _on_cpu(d_table, slots, muT, invT, winvT):
+        return screen_ref.gaussian_phase_gather(d_table, slots, muT, invT, winvT)
+    if d_table.dim() != 2:
+        raise ValueError(f"d_table must be [NU, C], got {tuple(d_table.shape)}")
+    nu, c = _conformer_count(*d_table.shape)
+    ns = slots.shape[0]
+    _check("d_table", d_table, torch.float32, (nu, c))
+    _check("slots", slots, torch.int32, (ns,))
+    _row_tables(ns, muT, invT, winvT)
+    lib = load_library()
+    out = torch.empty((2 * c, ns), dtype=torch.float32, device=d_table.device)
+    _launch("gaussian_phase_gather", d_table.device, lib.screen_gauss_gather,
+            d_table, nu, slots, muT, invT, winvT, out, ns // TILE, c)
+    return out
+
+
+def gaussian_phase_local(
+    pos_blocks: torch.Tensor,  # [T, 3C, NODE_CAP] f32
+    u_loc: torch.Tensor,  # [NS] i32 local node slot of each row's u
+    v_loc: torch.Tensor,  # [NS] i32
+    muT: torch.Tensor,  # [P, NS] f32
+    invT: torch.Tensor,
+    winvT: torch.Tensor,
+) -> torch.Tensor:
+    """P2: the Gaussian phase with the distances rebuilt from per-tile node
+    tables, u and v from two index rows. Returns stacked [2C, NS]."""
+    if _on_cpu(pos_blocks, u_loc, v_loc, muT, invT, winvT):
+        return screen_ref.gaussian_phase_local(pos_blocks, u_loc, v_loc, muT, invT, winvT)
+    t, c = _conformers(pos_blocks)
+    ns = t * TILE
+    _check("pos_blocks", pos_blocks, torch.float32, (t, 3 * c, NODE_CAP))
+    _check("u_loc", u_loc, torch.int32, (ns,))
+    _check("v_loc", v_loc, torch.int32, (ns,))
+    _row_tables(ns, muT, invT, winvT)
+    lib = load_library()
+    out = torch.empty((2 * c, ns), dtype=torch.float32, device=pos_blocks.device)
+    _launch("gaussian_phase_local", pos_blocks.device, lib.screen_gauss_local,
+            pos_blocks, u_loc, v_loc, muT, invT, winvT, out, t, c)
+    return out
+
+
+def score_tiles_fused_ablation(
+    pos_blocks: torch.Tensor,  # K1's inputs
+    uv: torch.Tensor,
+    gtab: torch.Tensor,
+    aux: torch.Tensor,
+    depth1: int,
+    depth2: int,
+    mode: str,
+) -> torch.Tensor:
+    """P3: K1 with one stage removed (`full`, `noscan`, `noexp`, `nohot`,
+    `gauss0`; see screen_ref.score_tiles_fused_ablation). Returns
+    [T*TILE, C] rows; `full` launches K1's own instantiation."""
+    if mode not in ABLATION_FLAGS:
+        raise ValueError(f"unknown ablation {mode!r}; expected one of {tuple(ABLATION_FLAGS)}")
+    if _on_cpu(pos_blocks, uv, gtab, aux):
+        return screen_ref.score_tiles_fused_ablation(pos_blocks, uv, gtab, aux, depth1,
+                                                     depth2, mode)
+    t, c = _tile_major(pos_blocks, uv, gtab, aux)
+    lib = load_library()
+    out = torch.empty((t * TILE, c), dtype=torch.float32, device=pos_blocks.device)
+    _launch("score_tiles_fused_ablation", pos_blocks.device, lib.screen_tiles_fused_ablation,
+            pos_blocks, uv, gtab, aux, out, t, c, int(depth1), int(depth2),
+            ABLATION_FLAGS[mode], mode=mode)
+    return out
+
+
+def score_tiles_fused_variant(
+    pos_blocks: torch.Tensor,  # K1's inputs
+    uv: torch.Tensor,
+    gtab: torch.Tensor,
+    aux: torch.Tensor,
+    depth1: int,
+    depth2: int,
+    mode: str,
+    return_distances: bool = False,
+):
+    """P4: K1's function in a design variant (`full`, `b4d`: K1's
+    instantiation; `ohbf16`: the node selection on the tensor cores).
+    Returns [T*TILE, C] rows, and with `return_distances` (ohbf16 only)
+    also the [T, C, TILE] distances the kernel selected and formed."""
+    if mode not in VARIANT_IDS:
+        raise ValueError(f"unknown variant {mode!r}; expected one of {tuple(VARIANT_IDS)}")
+    if return_distances and mode != "ohbf16":
+        raise ValueError("only the ohbf16 variant returns its distances")
+    if _on_cpu(pos_blocks, uv, gtab, aux):
+        rows = screen_ref.score_tiles_fused_variant(pos_blocks, uv, gtab, aux, depth1,
+                                                    depth2, mode)
+        if return_distances:
+            return rows, screen_ref.packed_row_distances(pos_blocks, uv)
+        return rows
+    t, c = _tile_major(pos_blocks, uv, gtab, aux)
+    lib = load_library()
+    dev = pos_blocks.device
+    out = torch.empty((t * TILE, c), dtype=torch.float32, device=dev)
+    dist = torch.empty((t, c, TILE), dtype=torch.float32, device=dev) if return_distances else None
+    _launch("score_tiles_fused_variant", dev, lib.screen_tiles_fused_variant,
+            pos_blocks, uv, gtab, aux, out, dist, t, c, int(depth1), int(depth2),
+            VARIANT_IDS[mode], mode=mode)
+    return (out, dist) if return_distances else out

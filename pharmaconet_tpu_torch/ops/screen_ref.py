@@ -1,12 +1,14 @@
-"""Plain torch versions of the screening kernels (K1-K5).
+"""Plain torch versions of the screening kernels (K1-K5) and of the probe
+kernels (P1-P4).
 
 Each function computes what its hand-written CUDA kernel in
 csrc/screen_fused.cu computes, step by step as the JAX package's Pallas
-kernels in pharmaconet_tpu/ops/screen_pallas.py do, with gathers and
-shift-adds in place of the TPU's one-hot matmuls and lane rolls. The
-wrappers in ops/screen_cuda.py call these for CPU tensors; the tests hold
-them against the JAX functions, and chip_smoke.py holds the CUDA kernels
-against them on the card.
+kernels in pharmaconet_tpu/ops/screen_pallas.py (and the probe kernels of
+the repo's probes/ scripts) do, with gathers and shift-adds in place of
+the TPU's one-hot matmuls and lane rolls. The wrappers in
+ops/screen_cuda.py call these for CPU tensors; the tests hold them against
+the JAX functions, and chip_smoke.py holds the CUDA kernels against them
+on the card.
 
 Shapes (C conformers, P = 8 model pairs, TILE = 1024 rows, T tiles):
   pos_blocks [T, 3C, NODE_CAP] f32   per-tile node positions (row 3c+k)
@@ -18,6 +20,8 @@ Shapes (C conformers, P = 8 model pairs, TILE = 1024 rows, T tiles):
   K2 (v3 layout): gid [T, TILE] i32 group slot, tab [T, G, R] f32 group
   tables (rows [0, mn) mu, [mn, 2mn) 1/std, [2mn, 3mn) w2, 3mn mnhalf),
   aux [T, 3, TILE] f32 (pair-start flag, thr, is_self)
+  P1: d_table [NU, C] f32 unique distances, slots [NS] i32 rows into it
+  P2: u_loc, v_loc [NS] i32 local node slots of each row's u and v
 """
 
 from __future__ import annotations
@@ -27,37 +31,50 @@ import torch
 from ..scoring.screen_tiles import NODE_CAP, TILE
 
 
+def row_distances(pos_blocks: torch.Tensor, u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Conformer distances [T, C, tile] of each row's nodes u and w ([T,
+    tile] slots into the tile's node table): sqrt((dx²+dy²)+dz²)."""
+    t, threec, _ = pos_blocks.shape
+    tile = u.shape[-1]
+    u = u.long()[:, None, :].expand(t, threec, tile)
+    w = w.long()[:, None, :].expand(t, threec, tile)
+    dvec = (torch.gather(pos_blocks, 2, u) - torch.gather(pos_blocks, 2, w))
+    dvec = dvec.reshape(t, threec // 3, 3, tile)
+    dx, dy, dz = dvec[:, :, 0], dvec[:, :, 1], dvec[:, :, 2]
+    return torch.sqrt((dx * dx + dy * dy) + dz * dz)
+
+
+def packed_row_distances(pos_blocks: torch.Tensor, uv: torch.Tensor,
+                          cap: int = NODE_CAP) -> torch.Tensor:
+    """row_distances of rows packed as u_slot * cap + v_slot [T, tile]."""
+    uvl = uv.long()
+    return row_distances(pos_blocks, uvl // cap, uvl % cap)
+
+
 def gauss_phase_tiles(
     pos_blocks: torch.Tensor, uv: torch.Tensor, mu: torch.Tensor,
-    inv: torch.Tensor, winv: torch.Tensor, cap: int = NODE_CAP,
+    inv: torch.Tensor, winv: torch.Tensor, cap: int = NODE_CAP, noexp: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gaussian phase per tile: returns (scores, pass counts), each
     [T, C, TILE]. d = sqrt((dx²+dy²)+dz²); x = (d-μ)·inv; a term is
     winv·exp(-x²/2) and a pass is x² < 4, both only where winv > 0."""
-    t, threec, _ = pos_blocks.shape
-    c = threec // 3
-    tile = uv.shape[-1]
-    uvl = uv.long()
-    u = (uvl // cap)[:, None, :].expand(t, threec, tile)
-    v = (uvl % cap)[:, None, :].expand(t, threec, tile)
-    dvec = (torch.gather(pos_blocks, 2, u) - torch.gather(pos_blocks, 2, v))
-    dvec = dvec.reshape(t, c, 3, tile)
-    dx, dy, dz = dvec[:, :, 0], dvec[:, :, 1], dvec[:, :, 2]
-    d = torch.sqrt((dx * dx + dy * dy) + dz * dz)  # [T, C, tile]
-    return gauss_phase_dt(d, mu, inv, winv)
+    d = packed_row_distances(pos_blocks, uv, cap)
+    return gauss_phase_dt(d, mu, inv, winv, noexp=noexp)
 
 
 def gauss_phase_dt(
     dt: torch.Tensor, mu: torch.Tensor, inv: torch.Tensor, winv: torch.Tensor,
+    noexp: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gaussian phase from conformer distances dt [T, C, tile] and tables
     [T, K, tile] (K = P model pairs, or mn_cap for K2): returns (scores,
-    pass counts), each [T, C, tile], summed over K."""
+    pass counts), each [T, C, tile], summed over K. `noexp` (P3's
+    ablation) takes winv·x² as the term instead of winv·exp(-x²/2)."""
     x = (dt[:, None] - mu[:, :, None]) * inv[:, :, None]  # [T, K, C, tile]
     x2 = x * x
     w = winv[:, :, None]
     valid = w > 0.0
-    term = torch.where(valid, w * torch.exp(-0.5 * x2), 0.0)
+    term = torch.where(valid, w * (x2 if noexp else torch.exp(-0.5 * x2)), 0.0)
     hit = torch.where(valid & (x2 < 4.0), 1.0, 0.0)
     return term.sum(dim=1), hit.sum(dim=1)
 
@@ -228,3 +245,76 @@ def gaussian_phase(
         _tiles(winvT),
     )
     return _untile(torch.cat([scores, npass], dim=1))
+
+
+# --------------------------------------------------------------------------
+# Probe kernels P1-P4 (the repo's probes/ scripts)
+# --------------------------------------------------------------------------
+ABLATIONS = ("full", "noscan", "noexp", "nohot", "gauss0")
+VARIANTS = ("full", "b4d", "ohbf16")
+
+
+def gaussian_phase_gather(
+    d_table: torch.Tensor, slots: torch.Tensor, muT: torch.Tensor,
+    invT: torch.Tensor, winvT: torch.Tensor,
+) -> torch.Tensor:
+    """P1 (probe_pallas_screen.py `gather_kernel`): the Gaussian phase with
+    each row's C distances gathered from the unique-distance table
+    d_table [NU, C] by its slot [NS]. Returns stacked [2C, NS] (rows
+    [0, C) scores, [C, 2C) pass counts), K5's layout."""
+    d = d_table[slots.long()].T  # [C, NS]
+    scores, npass = gauss_phase_dt(d[None], muT[None], invT[None], winvT[None])
+    return torch.cat([scores[0], npass[0]], dim=0)
+
+
+def gaussian_phase_local(
+    pos_blocks: torch.Tensor, u_loc: torch.Tensor, v_loc: torch.Tensor,
+    muT: torch.Tensor, invT: torch.Tensor, winvT: torch.Tensor,
+) -> torch.Tensor:
+    """P2 (probe_pallas_screen.py `onehot_kernel`): the Gaussian phase with
+    each row's distances rebuilt from its tile's node table, u and v given
+    as two local slot rows u_loc, v_loc [NS]. Returns stacked [2C, NS]."""
+    t = pos_blocks.shape[0]
+    d = row_distances(pos_blocks, u_loc.reshape(t, TILE), v_loc.reshape(t, TILE))
+    scores, npass = gauss_phase_dt(d, _tiles(muT), _tiles(invT), _tiles(winvT))
+    return _untile(torch.cat([scores, npass], dim=1))
+
+
+def score_tiles_fused_ablation(
+    pos_blocks: torch.Tensor, uv: torch.Tensor, gtab: torch.Tensor,
+    aux: torch.Tensor, depth1: int, depth2: int, mode: str,
+) -> torch.Tensor:
+    """P3 (probe_fused_split.py `make_kernel(mode)`): K1 with one stage
+    removed, as [T*TILE, C] rows. `full` is K1; `noscan` skips the scans
+    and the fail logic and writes scores + pass counts; `noexp` takes
+    winv·x² as the term; `nohot` takes the constant distance
+    1.5 + pos_blocks[t, 0, 0] instead of selecting the row's nodes;
+    `gauss0` is nohot, noexp and noscan together."""
+    if mode not in ABLATIONS:
+        raise ValueError(f"unknown ablation {mode!r}; expected one of {ABLATIONS}")
+    noscan, noexp = mode in ("noscan", "gauss0"), mode in ("noexp", "gauss0")
+    mu, inv, winv = gtab[:, 0], gtab[:, 1], gtab[:, 2]
+    if mode in ("nohot", "gauss0"):
+        t, threec, _ = pos_blocks.shape
+        d = (1.5 + pos_blocks[:, 0, 0])[:, None, None].expand(t, threec // 3, uv.shape[-1])
+        scores, npass = gauss_phase_dt(d, mu, inv, winv, noexp=noexp)
+    else:
+        scores, npass = gauss_phase_tiles(pos_blocks, uv, mu, inv, winv, noexp=noexp)
+    if noscan:
+        table = scores + npass
+    else:
+        rows = [aux[:, j] for j in range(7)]
+        table = scan_fail_tail(scores, npass, *rows, depth1, depth2)
+    return _untile(table).T.contiguous()
+
+
+def score_tiles_fused_variant(
+    pos_blocks: torch.Tensor, uv: torch.Tensor, gtab: torch.Tensor,
+    aux: torch.Tensor, depth1: int, depth2: int, mode: str,
+) -> torch.Tensor:
+    """P4 (probe_kernel_r3.py `make_kernel(mode)`): K1's function in a
+    design variant (`full`, `b4d`, `ohbf16`); every mode computes K1's
+    [T*TILE, C] rows, so this is K1's plain version."""
+    if mode not in VARIANTS:
+        raise ValueError(f"unknown variant {mode!r}; expected one of {VARIANTS}")
+    return score_tiles_fused_rows(pos_blocks, uv, gtab, aux, depth1, depth2)

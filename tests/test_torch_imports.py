@@ -77,6 +77,10 @@ def test_every_module_imports_without_jax_and_builds_nothing():
         "network.swin3d", "network.fpn", "network.heads", "network.model", "network.convert",
         "module", "utils.visualize", "cli.modeling")}
     assert modeling <= names, modeling - names
+    probes = {f"pharmaconet_tpu_torch.probes.{m}" for m in (
+        "prep", "timing", "probe_pallas_screen", "probe_fused_split", "probe_kernel_r3",
+        "sass_compare")}
+    assert probes <= names, probes - names
 
 
 def test_cuda_without_card_raises():

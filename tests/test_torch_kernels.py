@@ -1,5 +1,5 @@
-"""The screening kernels (K1-K5) and the voxelizer (K6) of
-pharmaconet_tpu_torch.
+"""The screening kernels (K1-K5), the voxelizer (K6) and the probe kernels
+(P1-P4) of pharmaconet_tpu_torch.
 
 This file imports no JAX. The CPU tests hold the plain torch versions
 against each other (tile-local scans against the whole-row scans of the
@@ -19,6 +19,7 @@ import torch
 
 from pharmaconet_tpu_torch.ops import screen_cuda, screen_ref, voxelize_cuda
 from pharmaconet_tpu_torch.ops.voxelize import voxelize
+from pharmaconet_tpu_torch.probes import prep as probe_prep
 from pharmaconet_tpu_torch.scoring.batch_screen import (
     BatchScreener,
     PackedModel,
@@ -139,7 +140,9 @@ def test_cuda_kernels_match_plain(cuda, c):
     torch.cuda.synchronize()
     assert screen_cuda.LAUNCHES == {"score_tiles_fused_rows": 1, "score_tiles_v3": 0,
                                     "score_tiles_fused_dt": 0, "score_blocks_fused": 1,
-                                    "gaussian_phase": 1}
+                                    "gaussian_phase": 1, "gaussian_phase_gather": 0,
+                                    "gaussian_phase_local": 0, "score_tiles_fused_ablation": 0,
+                                    "score_tiles_fused_variant": 0}
 
 
 @pytest.mark.gpu
@@ -270,3 +273,59 @@ def test_cuda_voxelizer_matches_plain(cuda, tmp_path, dim, keep):
     assert img.shape == (dim, dim, dim, 33) and occ.dtype == torch.bool
     assert torch.equal(occ, want_occ) and occ.any()
     torch.testing.assert_close(img, want_img, atol=1e-5, rtol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# probe kernels P1-P4 (their plain versions are held against the probe
+# scripts' Pallas bodies in tests/test_torch_probes.py)
+# --------------------------------------------------------------------------
+def _probe_rows(c: int):
+    rb = probe_prep.row_batch(*probe_prep.headline_inputs(24, num_conformers=c))
+    return rb, probe_prep.gather_inputs(rb), probe_prep.local_tables(rb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", CONFORMERS)
+def test_cuda_p1_p2_match_plain(cuda, c):
+    rb, gi, lt = _probe_rows(c)
+    tables = [torch.from_numpy(a).to(cuda) for a in (rb.muT, rb.invT, rb.winvT)]
+    uv = torch.from_numpy(lt.uv_loc).to(cuda)
+    screen_cuda.reset_launch_counts()
+    p1_in = [torch.from_numpy(gi.d_table).to(cuda), torch.from_numpy(gi.slots).to(cuda), *tables]
+    p2_in = [torch.from_numpy(lt.pos_blocks).to(cuda), uv[0], uv[1], *tables]
+    for got, want in ((screen_cuda.gaussian_phase_gather(*p1_in),
+                       screen_ref.gaussian_phase_gather(*p1_in)),
+                      (screen_cuda.gaussian_phase_local(*p2_in),
+                       screen_ref.gaussian_phase_local(*p2_in))):
+        assert torch.equal(got[c:], want[c:])  # pass counts are exact
+        assert_scores_close(got, want)
+    torch.cuda.synchronize()
+    assert screen_cuda.LAUNCHES["gaussian_phase_gather"] == 1
+    assert screen_cuda.LAUNCHES["gaussian_phase_local"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", CONFORMERS)
+def test_cuda_p3_p4_match_plain_and_k1(cuda, c):
+    """Every ablation against its plain version, `full` bit-equal to K1,
+    every variant against K1, and ohbf16's distances bit-equal to the
+    prepack-time distances (numpy, correctly rounded)."""
+    ti = probe_prep.tiled_inputs(*probe_prep.headline_inputs(24, num_conformers=c))
+    x = [torch.from_numpy(a).to(cuda) for a in ti.arrays]
+    d = (ti.depth1, ti.depth2)
+    screen_cuda.reset_launch_counts()
+    k1 = screen_cuda.score_tiles_fused_rows(*x, *d)
+    for mode in screen_ref.ABLATIONS:
+        got = screen_cuda.score_tiles_fused_ablation(*x, *d, mode)
+        assert_scores_close(got, screen_ref.score_tiles_fused_ablation(*x, *d, mode))
+        if mode == "full":
+            assert torch.equal(got, k1)  # K1's own instantiation
+    for mode in screen_ref.VARIANTS:
+        assert_scores_close(screen_cuda.score_tiles_fused_variant(*x, *d, mode), k1)
+    _, dist = screen_cuda.score_tiles_fused_variant(*x, *d, "ohbf16", return_distances=True)
+    assert torch.equal(dist.cpu(), torch.from_numpy(tile_distances(ti.pos_blocks, ti.uv,
+                                                                   native=False)))
+    torch.cuda.synchronize()
+    assert screen_cuda.LAUNCHES["score_tiles_fused_ablation"] == 5
+    assert screen_cuda.LAUNCHES["score_tiles_fused_variant"] == 4
+    assert screen_cuda.MODE_LAUNCHES["score_tiles_fused_variant[ohbf16]"] == 2
