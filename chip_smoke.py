@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero:
   3. kernels — at the headline batch (20-cluster model seed 0, 2048 ligands
                x 4 conformers seed 1) holds K1, K3, K4 and K5 against their
                plain torch versions on the card and times both; K3 on the
-               batch's v2 store arrays
+               batch's v2 store arrays; K1 also bit for bit against its
+               first design (P3 `full`), timed beside it in the same rounds
   4. paths   — the --library CLI route on 4 x 2048 ligands (K1), and the
                native_pack=False (K4) and fused=False (K5) screener paths;
                each with the launch counts reset just before and read just
@@ -23,7 +24,8 @@ Phases, in order; any failure exits non-zero:
                store without leaves on 1 batch through score_stored (K2 +
                compaction on the device); each route's launch counts reset
                just before and read just after, every score against the
-               reference engine; K2 held against its plain version and
+               reference engine; K2 held against its plain version and, bit
+               for bit, its first design (screen_tiles_v3_baseline), both
                timed on the default store's first batch, which is the
                headline batch at the shape the store pins for every batch
   7. modeling — pocket modeling at the published architecture's full width
@@ -47,7 +49,11 @@ Then prints the {"kernels": [...]} line, the nvidia-smi name/power line, and
 last {"ok": true, "device": {...}}. A kernel's `ms` is one call between two
 CUDA events (host work included), `stream_ms` its time per call back to
 back with no wait for the host (`stream_gapless`), and `enqueue_ms` the
-host's time to enqueue one (probes/timing.py).
+host's time to enqueue one (probes/timing.py). K1's and K2's entries add
+their first designs' `baseline_ms` and `baseline_stream_ms` (same timers,
+same rounds), `bit_equal_to_baseline`, and `occupancy` /
+`baseline_occupancy`: registers and local bytes per thread, shared memory
+per block and blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 """
 
 from __future__ import annotations
@@ -136,6 +142,29 @@ def kernel_times(name: str, fn):
     return time_rounds(torch.device("cuda"), {name: fn})[name]
 
 
+def baseline_entry(name: str, fn, out: torch.Tensor, baseline, resources) -> dict:
+    """K1 or K2 against its first design: `out` bit-equal to `baseline()`
+    (raises otherwise), both timed in the same rounds, and both designs'
+    registers, shared memory and blocks per SM. `resources` is (the first
+    design's resource name, kernel_resources keywords). Returns the fields
+    for the kernels line, `times` the new kernel's Times."""
+    from pharmaconet_tpu_torch.ops import screen_cuda
+    from pharmaconet_tpu_torch.probes.timing import time_rounds
+
+    base = baseline()
+    if not torch.equal(out, base):
+        raise AssertionError(f"{name}: {int((out != base).sum())} of {out.numel()} values "
+                             "differ from its first design's")
+    times = time_rounds(torch.device("cuda"), {name: fn, "baseline": baseline})
+    base_name, kw = resources
+    return dict(times=times[name], baseline_ms=times["baseline"].ms,
+                baseline_stream_ms=times["baseline"].stream_ms,
+                baseline_enqueue_ms=times["baseline"].enqueue_ms,
+                baseline_stream_gapless=times["baseline"].gapless, bit_equal_to_baseline=True,
+                occupancy=screen_cuda.kernel_resources(name, **kw),
+                baseline_occupancy=screen_cuda.kernel_resources(base_name, **kw))
+
+
 def timing_fields(times, plain) -> dict:
     from pharmaconet_tpu_torch.probes.timing import time_ms
 
@@ -144,24 +173,35 @@ def timing_fields(times, plain) -> dict:
 
 
 def kernel_entry(name, replaces, fn, plain, inputs, out, ops, tiles, source=SCREEN_CU,
-                 times=None):
+                 times=None, baseline=None):
     """Holds `out` (the kernel's output) against `plain()`, times both
     (the kernel here unless `times` brings it from a probe's run) and
     computes the bound: each of `inputs` read once and `out` written once
-    over the HBM rate, or `ops` f32 operations over the f32 rate."""
+    over the HBM rate, or `ops` f32 operations over the f32 rate.
+    `baseline` (fn, resources) holds K1 or K2 to its first design
+    (baseline_entry) and times the two together."""
     err, mism = compare(name, out, plain())
+    extra = {}
+    if baseline is not None:
+        extra = baseline_entry(name, fn, out, *baseline)
+        times = extra.pop("times")
     nbytes = sum(t.numel() * t.element_size() for t in inputs) + out.numel() * 4
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     entry = dict(
         name=name, route="cuda", source=source, replaces=replaces, launches=0,
         max_abs_err=err, **timing_fields(times or kernel_times(name, fn), plain),
         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None, minus1_mismatches=mism, tiles=tiles, bytes=nbytes, ops=ops,
+        library_ms=None, minus1_mismatches=mism, tiles=tiles, bytes=nbytes, ops=ops, **extra,
     )
     log(f"  {name}: T={tiles} max_abs_err={err:.3g} -1 mismatches={mism} "
         f"ms={entry['ms']:.4f} stream_ms={entry['stream_ms']:.4f} "
         f"(gapless {entry['stream_gapless']}) enqueue_ms={entry['enqueue_ms']:.4f} "
         f"plain_ms={entry['plain_ms']:.3f} bound_ms={entry['bound_ms']:.4f}")
+    if extra:
+        log(f"    first design: bit-equal, ms={entry['baseline_ms']:.4f} "
+            f"stream_ms={entry['baseline_stream_ms']:.4f} "
+            f"(gapless {entry['baseline_stream_gapless']}); occupancy {entry['occupancy']}, "
+            f"first design {entry['baseline_occupancy']}")
     return entry
 
 
@@ -181,10 +221,12 @@ def phase_kernels(pm, ligands, dev) -> dict:
     d = (tb.depth1, tb.depth2)
     tiles, c = k1_in[0].shape[0], k1_in[0].shape[1] // 3
     k1 = lambda: screen_cuda.score_tiles_fused_rows(*k1_in, *d)  # noqa: E731
+    k1_first = lambda: screen_cuda.score_tiles_fused_ablation(*k1_in, *d, "full")  # noqa: E731
     out["score_tiles_fused_rows"] = kernel_entry(
         "score_tiles_fused_rows", f"{SCREEN_PALLAS}:463", k1,
         lambda: screen_ref.score_tiles_fused_rows(*k1_in, *d),
-        k1_in, k1(), f32_ops(c, tiles * 1024, valid_entries(k1_in[2][:, 2]), True, d), tiles)
+        k1_in, k1(), f32_ops(c, tiles * 1024, valid_entries(k1_in[2][:, 2]), True, d), tiles,
+        baseline=(k1_first, ("score_tiles_fused_ablation[full]", dict(c=c))))
 
     # K3 on the batch's v2 store arrays (the tiles that hold rows, as the
     # stored route sends them) and their prepack-time distances
@@ -230,13 +272,21 @@ def k2_entry(sb, dev) -> dict:
     w2 = k2_in[2][:, :, 2 * sb.mn_cap : 3 * sb.mn_cap]  # [T, G, mn_cap]
     per_row = (w2 > 0).sum(-1).gather(1, k2_in[1].long())  # valid entries of each row
     k2 = lambda: screen_cuda.score_tiles_v3_rows(*k2_in, **kw)  # noqa: E731
+    k2_first = lambda: screen_cuda.score_tiles_v3_baseline_rows(*k2_in, **kw)  # noqa: E731
+    c, g_cap, r_pad = k2_in[0].shape[1], k2_in[2].shape[1], k2_in[2].shape[2]
     entry = kernel_entry(
         "score_tiles_v3", f"{SCREEN_PALLAS}:374", k2, lambda: screen_ref.score_tiles_v3_rows(*k2_in, **kw),
-        k2_in, k2(),
-        f32_ops(k2_in[0].shape[1], k2_in[1].numel(), int(per_row.sum()), False, (sb.depth,)),
-        k2_in[0].shape[0])
+        k2_in, k2(), f32_ops(c, k2_in[1].numel(), int(per_row.sum()), False, (sb.depth,)),
+        k2_in[0].shape[0],
+        baseline=(k2_first, ("score_tiles_v3_baseline", dict(c=c, g_cap=g_cap, r_pad=r_pad))))
+    # entries K2 evaluates: each group's up to its last of weight > 0 (the
+    # first design evaluates all mn_cap of every row)
+    last = ((w2 > 0) * torch.arange(1, sb.mn_cap + 1, device=dev)).amax(-1)
+    evaluated = int(last.gather(1, k2_in[1].long()).sum())
     log(f"    K2 layout: mn_cap {sb.mn_cap}, g_cap {sb.g_cap}, depth {sb.depth}, "
-        f"{k2_in[1].numel()} rows, {int(per_row.sum())} valid entries")
+        f"{k2_in[1].numel()} rows, {int(per_row.sum())} valid entries; entries evaluated: "
+        f"{evaluated} (K2), {k2_in[1].numel() * sb.mn_cap} (first design)")
+    entry.update(entries_evaluated=evaluated, baseline_entries_evaluated=k2_in[1].numel() * sb.mn_cap)
     torch.cuda.synchronize()
     return entry
 

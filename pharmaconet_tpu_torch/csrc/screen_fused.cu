@@ -4,8 +4,10 @@
 //   K1 screen_tiles_fused    <- score_tiles_fused (_fused_kernel_v2), rows
 //                               form of score_tiles_fused_rows: tile-major
 //                               gtab/aux, distances rebuilt per tile
+//                               (fused_stream_kernel<C>)
 //   K2 screen_tiles_v3       <- score_tiles_v3 (_v3_kernel), rows form of
 //                               score_tiles_v3_rows: v3 block-major layout
+//                               (v3_stream_kernel<C>)
 //   K3 screen_tiles_fused_dt <- score_tiles_fused_dt (_fused_kernel_dt):
 //                               K1 with the distances read from the store
 //   K4 screen_blocks_fused   <- score_blocks_pallas_fused (_fused_kernel):
@@ -26,16 +28,16 @@
 //                               NOEXP, NOHOT; all three = gauss0)
 //   P4 screen_tiles_fused_variant  <- probe_kernel_r3.py make_kernel: K1's
 //                               function in design variants. `full` and
-//                               `b4d` launch K1's own instantiation: b4d
+//                               `b4d` launch K1's first design: b4d
 //                               removed the TPU's [P*C, TILE] broadcast
 //                               copies, and a thread per row holds its P
 //                               entries in registers and builds no
-//                               broadcast, so K1 already is b4d here.
+//                               broadcast, so that design already is b4d.
 //                               `ohbf16` (FUSED_MMA) selects the node
 //                               positions on the tensor cores (below).
 //
-// K1, K3, K4, K5 and P1-P4 are one template
-// (screen_tile_kernel<C, MODE, FLAGS>) over pointer strides; K1-K5 are the
+// K3, K4, K5 and P1-P4 are one template
+// (screen_tile_kernel<C, MODE, FLAGS>) over pointer strides; K3-K5 are
 // FLAGS = 0 instances. What it computes, per 1024-row tile (one thread
 // block, one thread per row; scan segments never cross a tile because the
 // layout is pair-aligned):
@@ -47,18 +49,20 @@
 //      selected with a one-hot matmul because Mosaic has no gather);
 //   2. over the P = 8 model pairs: x = (d-μ)·inv, term = winv·exp(-x²/2)
 //      and pass = x² < 4 where winv > 0, summed over P;
-//   3. (K1, K3, K4) a bounded segmented Hillis-Steele scan sub-row -> block
-//      (depth1), block score ·1/(MN), block fail where passes < (MN+1)/2 on
-//      cross pairs, a second scan block -> pair (depth2), and -1 where
-//      fails > threshold on a non-self pair.
-//
-// K2 (v3_tile_kernel<C>) is the same arithmetic on the v3 layout: one row
-// per ligand-node-pair block, the model-node-pair axis (mn_cap entries)
-// inside the row. The tile's [g_cap, r_pad] group table sits in shared
-// memory and each row reads its group's (μ, 1/std, w2, mnhalf) by its gid,
-// an indexed load where the TPU kernel ran a one-hot MXU select. The block
-// fail is set in-row, and ONE pair-level scan of [score; block_fail]
-// follows.
+//   3. (FUSED, FUSED_DT) a bounded segmented Hillis-Steele scan sub-row ->
+//      block (depth1), block score ·1/(MN), block fail where passes <
+//      (MN+1)/2 on cross pairs, a second scan block -> pair (depth2), and -1
+//      where fails > threshold on a non-self pair.
+// Its FUSED, FLAGS = 0 instance is K1's first design: the tile's node table
+// loaded and waited for at a block-wide barrier, then two block-wide scans
+// with two barriers per step. P3 `full` and P4 `full`/`b4d` launch it, and
+// K1 is held to it bit for bit. K2's first design, v3_tile_kernel<C> (the
+// same arithmetic on the v3 layout: one row per ligand-node-pair block, the
+// mn_cap model-node-pair entries inside the row, each row reading its
+// group's (μ, 1/std, w2, mnhalf) from the tile's [g_cap, r_pad] group table
+// in shared memory by its gid, the block fail set in-row, ONE pair-level
+// scan of [score; block_fail]), stays behind screen_tiles_v3_baseline for
+// the same comparison.
 //
 // P4 `ohbf16` (FUSED_MMA) does the selection of step 1 as the TPU did, on
 // the tensor cores: each f32 node position splits exactly into three bf16
@@ -79,11 +83,49 @@
 // aux 28 KiB, uv 4 KiB, the node table and the output), K3 ~160 KiB (dt
 // in place of uv and the node table), K2 ~44 KiB (dt, gid, an 8 KiB table,
 // aux 12 KiB, the output), each against a few hundred f32 operations per
-// row, far below the H100's operations-per-byte balance. The design keeps
+// row, far below the H100's operations-per-byte balance. Every design keeps
 // every intermediate (distances, the stacked scores/passes, the scans) in
 // registers and shared memory, so HBM sees each input once and the output
-// once. Not yet done: TMA/cp.async prefetch of the next tile and more than
-// one tile in flight per SM.
+// once.
+//
+// What held the first designs of K1 and K2 from that bound was work and
+// waiting inside the block, not the memory system: a 1024-thread block per
+// tile sits alone on its SM, each tile began with a global load of its
+// small table and a block-wide barrier that nothing on the SM hid, and each
+// scan step paid two barriers and a shared-memory round trip (P3's
+// ablation: the selection 36% of K1's time, the scans 27%). The streaming
+// designs (fused_stream_kernel, v3_stream_kernel):
+//   - Persistent blocks, as many as fit on the SMs (one 1024-thread block
+//     per SM), each walk tiles blockIdx.x, + gridDim.x, ...
+//   - The small per-tile tables arrive by TMA (cp.async.bulk, completion on
+//     an mbarrier) into a double buffer: K1's uv and [3C, 64] node table,
+//     K2's gid and [g_cap, r_pad] group table. While tile j computes, tile
+//     j+1's tables have landed and tile j+2's are in flight.
+//   - The large streams (K1's gtab and aux, K2's dt and aux) stay coalesced
+//     register loads; while one warp waits for them the SM's other warps
+//     compute, since only the scans' barriers align the warps of a tile.
+//     K2 has the registers to load its next tile's streams before its
+//     barrier, so they arrive during the scan; K1, at the 64 registers a
+//     1024-thread block allows, has not. (A bulk L2 prefetch of the next
+//     tile's streams made K1 slower on the H100, so there is none.)
+//   - K1 interleaves each staged node table once, as [64][C] of (x, y, z, -):
+//     a conformer position is one 16-byte shared-memory load, 2C per row
+//     where the first design made 6C scalar loads. The values are the same,
+//     so distance3 gives the same distances.
+//   - K2 finds, once per tile as its table lands, each group's last entry
+//     of positive weight, and every row's loop stops there. Padding sits
+//     above a group's mn with w = 0 (scoring/screen_v3.py _expand_rows). An
+//     entry of weight <= 0 (or NaN) adds +0 to a sum that starts at +0 and
+//     stays >= +0 or NaN, and no pass, so skipping it changes no bit.
+//   - The scans run inside each warp with shuffles (scan_rows, which says
+//     why that is exact): one barrier per scan, where the block-wide scan
+//     paid two per step. Depths whose window exceeds a warp (2^depth > 32)
+//     take the block-wide steps, a branch of the same function. Per tile K1
+//     passes two barriers and K2 one.
+//   - A K2 table too large for the double buffers (and double scan buffers)
+//     runs with single ones, staged one tile ahead behind one more barrier
+//     per tile. So K2 takes every table of the stores' shapes (g_cap a
+//     power of two, r_pad a multiple of 128) that the first design took.
 //
 // Discrete decisions (x² < 4, passes < (MN+1)/2, fails > thr) must match
 // the reference bit for bit, so the file is built without fast math and
@@ -468,6 +510,420 @@ __global__ void __launch_bounds__(TILE) v3_tile_kernel(V3Args a) {
     }
 }
 
+// --- K1 and K2: persistent blocks, TMA-staged tables, warp scans ------------
+
+// Scans whose window (2^depth rows) fits a warp run inside the warp.
+constexpr int WINDOW_DEPTH = 5;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until the barrier's phase of this parity has completed; the data
+// its copies wrote is then visible to the thread.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    uint32_t done = 0;
+    while (!done) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(smem_u32(bar)), "r"(parity)
+            : "memory");
+    }
+}
+
+// One thread arms `bar` for `bytes`, then issues the TMA copies that bring
+// them (each contiguous, 16-byte aligned, a multiple of 16 bytes).
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+          "r"(smem_u32(bar))
+        : "memory");
+}
+
+// Orders the block's reads of a buffer (behind the barrier just passed)
+// before the TMA writes into it that the thread issues next.
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// scan_bounded's scan (the same recurrence, val += val[r - shift] where row
+// r has not yet seen its start, lanes below the shift at the tile start
+// acting as starts, and the same __fadd_rn on the same operands) without a
+// barrier per step. Thread r holds row r's R values and its start flag;
+// `buf` holds every row's initial [values; flag] (R + 1 floats, row stride
+// TILE), written before a barrier the block has passed.
+//
+// Windowed (depth <= WINDOW_DEPTH): after k steps a row depends only on its
+// own and the 2^k - 1 rows before it, so a warp's 32 rows need no more than
+// the 31 rows before the warp. Each lane also carries row r - 32 (its halo
+// row, read once from buf) through the same steps, and takes a predecessor
+// from the warp's lanes by shuffle, or from the halo lanes when it lies
+// before the warp. A halo row whose predecessor lies before the halo is
+// left as it is: after k steps halo lane m holds the block-wide scan's
+// value whenever m >= 2^k - 1, and at step k a row of the warp reads halo
+// lane m >= 32 - 2^k, which is such a lane for every k <= 4. So every
+// operand a row of the warp adds is the block-wide scan's, and the results
+// are equal bit for bit. Halo rows before the tile (warp 0) are starts
+// holding 0, and no row reads them: a row below the shift is a start.
+//
+// Block-wide (deeper windows): scan_bounded's steps, two barriers each.
+template <int R>
+__device__ __forceinline__ void scan_rows(float (&v)[R], float seen, int depth, float* buf,
+                                          int r) {
+    if (depth <= WINDOW_DEPTH) {
+        const int lane = r & 31;
+        float h[R];
+        float hs = 1.f;
+#pragma unroll
+        for (int j = 0; j < R; ++j) h[j] = r >= 32 ? buf[j * TILE + r - 32] : 0.f;
+        if (r >= 32) hs = buf[R * TILE + r - 32];
+        for (int k = 0; k < depth; ++k) {
+            const int shift = 1 << k;
+            const int src = (lane - shift) & 31;
+            const bool inside = lane >= shift;  // the predecessor is a lane of the warp
+            const bool add = r >= shift && seen == 0.f;
+            const bool add_h = inside && hs == 0.f;
+            const float ps = __shfl_sync(FULL_MASK, seen, src);
+            const float phs = __shfl_sync(FULL_MASK, hs, src);
+            // value by value: each shuffle reads every lane's value before
+            // any lane updates it
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+                const float pv = __shfl_sync(FULL_MASK, v[j], src);
+                const float ph = __shfl_sync(FULL_MASK, h[j], src);
+                if (add) v[j] = __fadd_rn(v[j], inside ? pv : ph);
+                if (add_h) h[j] = __fadd_rn(h[j], ph);
+            }
+            seen = r >= shift ? fmaxf(seen, inside ? ps : phs) : 1.f;
+            if (inside) hs = fmaxf(hs, phs);
+        }
+        return;
+    }
+    for (int k = 0, shift = 1; k < depth && shift < TILE; ++k, shift <<= 1) {
+        float pv[R];
+        float ps = 0.f;
+        if (r >= shift) {
+#pragma unroll
+            for (int j = 0; j < R; ++j) pv[j] = buf[j * TILE + r - shift];
+            ps = buf[R * TILE + r - shift];
+        }
+        __syncthreads();
+        if (r >= shift) {
+            if (seen == 0.f) {
+#pragma unroll
+                for (int j = 0; j < R; ++j) v[j] = __fadd_rn(v[j], pv[j]);
+            }
+            seen = fmaxf(seen, ps);
+        } else {
+            seen = 1.f;
+        }
+#pragma unroll
+        for (int j = 0; j < R; ++j) buf[j * TILE + r] = v[j];
+        buf[R * TILE + r] = seen;
+        __syncthreads();
+    }
+}
+
+// Row r's C results with the widest aligned stores (out rows are C floats).
+template <int C>
+__device__ __forceinline__ void store_row(float* o, const float (&x)[C]) {
+    if constexpr (C % 4 == 0) {
+#pragma unroll
+        for (int q = 0; q < C / 4; ++q)
+            reinterpret_cast<float4*>(o)[q] =
+                make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+    } else if constexpr (C % 2 == 0) {
+#pragma unroll
+        for (int q = 0; q < C / 2; ++q)
+            reinterpret_cast<float2*>(o)[q] = make_float2(x[2 * q], x[2 * q + 1]);
+    } else {
+#pragma unroll
+        for (int c = 0; c < C; ++c) o[c] = x[c];
+    }
+}
+
+// The pair-level tail: -1 where a cross pair's fails exceed its threshold.
+template <int C>
+__device__ __forceinline__ void store_pairs(float* o, const float (&v)[2 * C], float thr,
+                                            float selff) {
+    float x[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) x[c] = (v[C + c] > thr && selff == 0.f) ? -1.f : v[c];
+    store_row<C>(o, x);
+}
+
+// K1's arguments: tile-major pos [T, 3C, CAP], uv [T, TILE], gtab
+// [T, 3, P, TILE], aux [T, 7, TILE]; out [T * TILE, C] rows.
+struct FusedStreamArgs {
+    const float* pos;
+    const int32_t* uv;
+    const float* gtab;
+    const float* aux;
+    float* out;
+    int tiles, depth1, depth2;
+};
+
+// K1's shared memory: two stages of (uv, raw node table) that TMA fills,
+// two interleaved node tables, and the two scans' buffers.
+template <int C>
+struct FusedStreamSmem {
+    static constexpr int NODE = 3 * C * CAP;  // floats of one node table
+    static constexpr int ROWV = 2 * C + 1;    // scan floats per row
+    uint64_t bar[2];
+    int32_t uv[2][TILE];
+    float raw[2][NODE];
+    float4 node[2][CAP * C];  // [slot][conformer] of (x, y, z, unused)
+    float scan1[ROWV * TILE];
+    float scan2[ROWV * TILE];
+};
+
+// K1: the streaming design (see the file header).
+template <int C>
+__global__ void __launch_bounds__(TILE, 1) fused_stream_kernel(FusedStreamArgs a) {
+    using Smem = FusedStreamSmem<C>;
+    constexpr int NODE = Smem::NODE;
+    extern __shared__ __align__(16) unsigned char smem_bytes[];
+    Smem& sm = *reinterpret_cast<Smem*>(smem_bytes);
+    const int r = threadIdx.x;
+    const int grid = gridDim.x;
+    int t = blockIdx.x;
+    if (t >= a.tiles) return;
+
+    auto stage = [&](int tt, int s) {  // one thread: tile tt's tables -> stage s
+        mbar_expect(&sm.bar[s], (TILE + NODE) * 4);
+        bulk_copy(sm.uv[s], a.uv + (long long)tt * TILE, TILE * 4, &sm.bar[s]);
+        bulk_copy(sm.raw[s], a.pos + (long long)tt * NODE, NODE * 4, &sm.bar[s]);
+    };
+    auto interleave = [&](int s) {  // the block: raw [3C, CAP] -> node [CAP][C]
+        for (int i = r; i < NODE; i += TILE) {
+            const int row = i / CAP, slot = i % CAP;  // row = 3 * conformer + axis
+            reinterpret_cast<float*>(&sm.node[s][slot * C + row / 3])[row % 3] = sm.raw[s][i];
+        }
+    };
+
+    if (r == 0) {
+        mbar_init(&sm.bar[0]);
+        mbar_init(&sm.bar[1]);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (r == 0) {
+        stage(t, 0);
+        if (t + grid < a.tiles) stage(t + grid, 1);
+    }
+    mbar_wait(&sm.bar[0], 0);
+    interleave(0);
+    __syncthreads();
+
+    for (int j = 0; t < a.tiles; ++j, t += grid) {
+        const int s = j & 1;
+        const bool next = t + grid < a.tiles;
+        // selection: a 16-byte load per node and conformer
+        const int32_t uvp = sm.uv[s][r];
+        const float4* nu = &sm.node[s][(uvp / CAP) * C];
+        const float4* nw = &sm.node[s][(uvp % CAP) * C];
+        float d[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+            const float4 pu = nu[c], pw = nw[c];
+            d[c] = distance3(pu.x, pu.y, pu.z, pw.x, pw.y, pw.z);
+        }
+        // the Gaussian tables, coalesced; four model pairs' loads in flight
+        // at a time (all eight ran slower on the H100: 24 live loads crowd
+        // the 64 registers a 1024-thread block allows)
+        const float* g = a.gtab + (long long)t * 3 * P * TILE + r;
+        float v[2 * C];
+#pragma unroll
+        for (int i = 0; i < 2 * C; ++i) v[i] = 0.f;
+#pragma unroll 4
+        for (int p = 0; p < P; ++p)
+            gauss_entry<C>(d, g[p * TILE], g[(P + p) * TILE], g[(2 * P + p) * TILE], v);
+        const float* ax = a.aux + (long long)t * 7 * TILE + r;
+        const float fb = ax[0], fp = ax[TILE];
+        const float mninv = ax[2 * TILE], mnhalf = ax[3 * TILE], gate = ax[4 * TILE];
+        const float thr = ax[5 * TILE], selff = ax[6 * TILE];
+
+        // sub -> block: scores and pass counts scan together
+#pragma unroll
+        for (int i = 0; i < 2 * C; ++i) sm.scan1[i * TILE + r] = v[i];
+        sm.scan1[2 * C * TILE + r] = fb;
+        if (next) {  // tile j+1's tables have landed (issued a tile ago)
+            mbar_wait(&sm.bar[s ^ 1], ((j + 1) >> 1) & 1);
+            interleave(s ^ 1);
+        }
+        __syncthreads();
+        if (r == 0 && t + 2 * grid < a.tiles) {  // stage s is read: tile j+2's tables
+            fence_proxy_async();
+            stage(t + 2 * grid, s);
+        }
+        scan_rows<2 * C>(v, fb, a.depth1, sm.scan1, r);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+            v[c] = __fmul_rn(v[c], mninv);                 // block score
+            v[C + c] = (v[C + c] < mnhalf) ? gate : 0.f;   // block fail
+        }
+        // block -> pair: [block_score; block_fail] scan together
+#pragma unroll
+        for (int i = 0; i < 2 * C; ++i) sm.scan2[i * TILE + r] = v[i];
+        sm.scan2[2 * C * TILE + r] = fp;
+        __syncthreads();
+        scan_rows<2 * C>(v, fp, a.depth2, sm.scan2, r);
+        store_pairs<C>(a.out + ((long long)t * TILE + r) * C, v, thr, selff);
+    }
+}
+
+// K2's arguments: dt [T, C, TILE], gid [T, TILE], tab [T, g_cap, r_pad],
+// aux [T, 3, TILE]; out [T * TILE, C] rows.
+struct V3StreamArgs {
+    const float* dt;
+    const int32_t* gid;
+    const float* tab;
+    const float* aux;
+    float* out;
+    int tiles, g_cap, r_pad, mn_cap, depth, stages;
+};
+
+// K2's shared memory, byte offsets for `stages` (2: double buffers; 1:
+// single ones, for tables too large for two): the mbarriers, each stage's
+// per-group entry limits, gid and group table, and the scan buffers.
+struct V3Layout {
+    long long lim, gid, tab, scan, total;
+};
+
+__host__ __device__ inline V3Layout v3_layout(int c, int g_cap, int r_pad, int stages) {
+    V3Layout l;
+    l.lim = 16;
+    l.gid = l.lim + ((4LL * stages * g_cap + 15) / 16) * 16;
+    l.tab = l.gid + 4LL * stages * TILE;
+    l.scan = l.tab + 4LL * stages * g_cap * r_pad;
+    l.total = l.scan + 4LL * stages * (2 * c + 1) * TILE;
+    return l;
+}
+
+// K2: the streaming design (see the file header).
+template <int C>
+__global__ void __launch_bounds__(TILE, 1) v3_stream_kernel(V3StreamArgs a) {
+    constexpr int ROWV = 2 * C + 1;
+    extern __shared__ __align__(16) unsigned char smem_bytes[];
+    const int stages = a.stages;
+    const V3Layout L = v3_layout(C, a.g_cap, a.r_pad, stages);
+    uint64_t* bar = reinterpret_cast<uint64_t*>(smem_bytes);
+    int* lim_s = reinterpret_cast<int*>(smem_bytes + L.lim);          // [stages][g_cap]
+    int32_t* gid_s = reinterpret_cast<int32_t*>(smem_bytes + L.gid);  // [stages][TILE]
+    float* tab_s = reinterpret_cast<float*>(smem_bytes + L.tab);      // [stages][g_cap * r_pad]
+    float* scan_s = reinterpret_cast<float*>(smem_bytes + L.scan);    // [stages][ROWV * TILE]
+    const int tab_n = a.g_cap * a.r_pad;
+    const int r = threadIdx.x;
+    const int grid = gridDim.x;
+    int t = blockIdx.x;
+    if (t >= a.tiles) return;
+
+    auto stage = [&](int tt, int s) {  // one thread: tile tt's gid and table -> stage s
+        mbar_expect(&bar[s], (TILE + tab_n) * 4);
+        bulk_copy(gid_s + s * TILE, a.gid + (long long)tt * TILE, TILE * 4, &bar[s]);
+        bulk_copy(tab_s + (long long)s * tab_n, a.tab + (long long)tt * tab_n, tab_n * 4,
+                  &bar[s]);
+    };
+    auto limits = [&](int s) {  // each group's entries up to its last of weight > 0
+        const float* tab = tab_s + (long long)s * tab_n;
+        for (int gi = r; gi < a.g_cap; gi += TILE) {
+            const float* w = tab + (long long)gi * a.r_pad + 2 * a.mn_cap;
+            int n = a.mn_cap;
+            while (n > 0 && !(w[n - 1] > 0.f)) --n;
+            lim_s[s * a.g_cap + gi] = n;
+        }
+    };
+
+    if (r == 0) {
+        mbar_init(&bar[0]);
+        mbar_init(&bar[1]);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (r == 0) {
+        stage(t, 0);
+        if (stages == 2 && t + grid < a.tiles) stage(t + grid, 1);
+    }
+    if (stages == 2) {
+        mbar_wait(&bar[0], 0);
+        limits(0);
+        __syncthreads();
+    }
+
+    // the row's streams (distances, pair-start flag, threshold, is_self),
+    // loaded a tile ahead into registers
+    float d[C], fp, thr, selff;
+    auto load_streams = [&](int tt) {
+        const float* dt_t = a.dt + (long long)tt * C * TILE + r;
+#pragma unroll
+        for (int c = 0; c < C; ++c) d[c] = dt_t[c * TILE];
+        const float* aux_t = a.aux + (long long)tt * 3 * TILE + r;
+        fp = aux_t[0];
+        thr = aux_t[TILE];
+        selff = aux_t[2 * TILE];
+    };
+    load_streams(t);
+    for (int j = 0; t < a.tiles; ++j, t += grid) {
+        const int s = stages == 2 ? (j & 1) : 0;
+        const bool next = t + grid < a.tiles;
+        if (stages == 1) {  // the table staged after the last tile's barrier
+            mbar_wait(&bar[0], j & 1);
+            limits(0);
+            __syncthreads();
+        }
+        float v[2 * C];
+#pragma unroll
+        for (int i = 0; i < 2 * C; ++i) v[i] = 0.f;
+        // a slot outside the table selects nothing (the one-hot select's zero
+        // row): no terms, no passes, mnhalf 0
+        const int gi = gid_s[s * TILE + r];
+        float mnhalf = 0.f;
+        if (gi >= 0 && gi < a.g_cap) {
+            const float* grp = tab_s + (long long)s * tab_n + (long long)gi * a.r_pad;
+            const int n = lim_s[s * a.g_cap + gi];
+            for (int k = 0; k < n; ++k)
+                gauss_entry<C>(d, grp[k], grp[a.mn_cap + k], grp[2 * a.mn_cap + k], v);
+            mnhalf = grp[3 * a.mn_cap];
+        }
+        const float gate = __fsub_rn(1.f, selff);  // fails count on cross pairs only
+#pragma unroll
+        for (int c = 0; c < C; ++c) v[C + c] = (v[C + c] < mnhalf) ? gate : 0.f;
+
+        float* buf = scan_s + (long long)s * ROWV * TILE;
+#pragma unroll
+        for (int i = 0; i < 2 * C; ++i) buf[i * TILE + r] = v[i];
+        buf[2 * C * TILE + r] = fp;
+        const float fp_t = fp, thr_t = thr, selff_t = selff;
+        if (next) load_streams(t + grid);  // in flight through the barrier and the scan
+        if (stages == 2 && next) {  // tile j+1's table has landed (issued a tile ago)
+            mbar_wait(&bar[s ^ 1], ((j + 1) >> 1) & 1);
+            limits(s ^ 1);
+        }
+        __syncthreads();
+        if (r == 0 && t + stages * grid < a.tiles) {  // stage s is read: its next tile
+            fence_proxy_async();
+            stage(t + stages * grid, s);
+        }
+        scan_rows<2 * C>(v, fp_t, a.depth, buf, r);
+        store_pairs<C>(a.out + ((long long)t * TILE + r) * C, v, thr_t, selff_t);
+    }
+}
+
 // Dynamic shared memory above 48 KB needs the opt-in; it is set once per
 // kernel instance to the most a block may use (the launch passes the
 // bytes it needs).
@@ -501,6 +957,98 @@ int launch_v3_c(const V3Args& a, int tiles, cudaStream_t stream) {
     if (const int e = allow_smem(v3_tile_kernel<C>, configured)) return e;
     if (tiles > 0) v3_tile_kernel<C><<<tiles, TILE, (int)smem, stream>>>(a);
     return (int)cudaGetLastError();
+}
+
+// The persistent grid: the SMs times the blocks of `kernel` that fit on one
+// at `smem` bytes of dynamic shared memory.
+template <typename K>
+int resident_blocks(K kernel, int smem, int& blocks) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TILE, smem);
+    blocks = sms * per_sm;
+    if (e != cudaSuccess) return (int)e;
+    return blocks > 0 ? 0 : -3;
+}
+
+template <int C>
+int launch_fused_stream_c(const FusedStreamArgs& a, cudaStream_t stream) {
+    constexpr int smem = (int)sizeof(FusedStreamSmem<C>);
+    static_assert(smem <= MAX_SMEM, "block shared memory");
+    if (a.tiles <= 0) return 0;
+    static bool configured = false;
+    if (const int e = allow_smem(fused_stream_kernel<C>, configured)) return e;
+    int blocks = 0;
+    if (const int e = resident_blocks(fused_stream_kernel<C>, smem, blocks)) return e;
+    fused_stream_kernel<C><<<a.tiles < blocks ? a.tiles : blocks, TILE, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// K2's table buffers for a [g_cap, r_pad] table: 2 when the double buffers
+// fit a block's shared memory, 1 when single ones do, 0 when neither.
+inline int v3_stages(int c, int g_cap, int r_pad) {
+    for (int stages = 2; stages >= 1; --stages)
+        if (v3_layout(c, g_cap, r_pad, stages).total <= MAX_SMEM) return stages;
+    return 0;
+}
+
+template <int C>
+int launch_v3_stream_c(V3StreamArgs a, cudaStream_t stream) {
+    a.stages = v3_stages(C, a.g_cap, a.r_pad);
+    if (a.stages == 0) return -2;
+    if ((long long)a.g_cap * a.r_pad % 4 != 0) return -4;  // TMA moves 16-byte units
+    if (a.tiles <= 0) return 0;
+    const int smem = (int)v3_layout(C, a.g_cap, a.r_pad, a.stages).total;
+    static bool configured = false;
+    if (const int e = allow_smem(v3_stream_kernel<C>, configured)) return e;
+    int blocks = 0;
+    if (const int e = resident_blocks(v3_stream_kernel<C>, smem, blocks)) return e;
+    v3_stream_kernel<C><<<a.tiles < blocks ? a.tiles : blocks, TILE, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// Registers and local (spill) bytes per thread, dynamic shared memory per
+// block and blocks per SM of `kernel` at `smem` bytes, into out[0..3].
+template <typename K>
+int kernel_resources(K kernel, long long smem, int* out) {
+    if (smem > MAX_SMEM) return -2;
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    cudaFuncAttributes fa{};
+    int per_sm = 0;
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TILE, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    out[0] = fa.numRegs;
+    out[1] = (int)fa.localSizeBytes;
+    out[2] = (int)smem;
+    out[3] = per_sm;
+    return 0;
+}
+
+template <int C>
+int resources_c(int kernel, int g_cap, int r_pad, int* out) {
+    switch (kernel) {
+        case 0:
+            return kernel_resources(fused_stream_kernel<C>, sizeof(FusedStreamSmem<C>), out);
+        case 1:
+            return kernel_resources(screen_tile_kernel<C, FUSED, 0>,
+                                    sizeof(float) * smem_floats<C, FUSED, 0>(), out);
+        case 2: {
+            const int stages = v3_stages(C, g_cap, r_pad);
+            if (stages == 0) return -2;
+            return kernel_resources(v3_stream_kernel<C>,
+                                    v3_layout(C, g_cap, r_pad, stages).total, out);
+        }
+        case 3:
+            return kernel_resources(v3_tile_kernel<C>,
+                                    4LL * ((long long)g_cap * r_pad + (2 * C + 1) * TILE), out);
+        default:
+            return -1;
+    }
 }
 
 // Instantiates `launch<C>` for C = 1..MAX_C from the runtime count c.
@@ -568,8 +1116,11 @@ int screen_max_conformers() { return MAX_C; }
 int screen_tiles_fused(const float* pos, const int32_t* uv, const float* gtab,
                        const float* aux, float* out, int tiles, int c,
                        int depth1, int depth2, void* stream) {
-    return launch<FUSED>(tile_major_args(pos, uv, gtab, aux, out, c, depth1, depth2), tiles, c,
-                         stream);
+    const FusedStreamArgs a{pos, uv, gtab, aux, out, tiles, depth1, depth2};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CALL(C) launch_fused_stream_c<C>(a, s)
+    DISPATCH_C(c, CALL)
+#undef CALL
 }
 
 // K4: row layout (uv [NS], mu/inv/winv [P, NS], seven [NS] rows); out [C, NS].
@@ -609,10 +1160,24 @@ int screen_tiles_fused_dt(const float* dt, const float* gtab, const float* aux,
 }
 
 // K2: v3 layout; out [T*TILE, C] rows. Returns -2 when the group table
-// and the scan buffers do not fit a block's shared memory.
+// and the scan buffers do not fit a block's shared memory, -4 when a tile's
+// table is not a whole number of 16-byte units.
 int screen_tiles_v3(const float* dt, const int32_t* gid, const float* tab,
                     const float* aux, float* out, int tiles, int c, int g_cap,
                     int r_pad, int mn_cap, int depth, void* stream) {
+    const V3StreamArgs a{dt, gid, tab, aux, out, tiles, g_cap, r_pad, mn_cap, depth, 0};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CALL(C) launch_v3_stream_c<C>(a, s)
+    DISPATCH_C(c, CALL)
+#undef CALL
+}
+
+// K2's first design (v3_tile_kernel), which K2 is held to bit for bit: the
+// same arguments and output. Returns -2 when its table and scan buffers do
+// not fit a block's shared memory.
+int screen_tiles_v3_baseline(const float* dt, const int32_t* gid, const float* tab,
+                             const float* aux, float* out, int tiles, int c, int g_cap,
+                             int r_pad, int mn_cap, int depth, void* stream) {
     const V3Args a{dt, gid, tab, aux, out, g_cap, r_pad, mn_cap, depth};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CALL(C) launch_v3_c<C>(a, tiles, s)
@@ -677,5 +1242,16 @@ int screen_tiles_fused_variant(const float* pos, const int32_t* uv, const float*
 }
 
 int screen_max_smem() { return MAX_SMEM; }
+
+// Resources of K1 and K2 (kernel 0 K1, 1 K1's first design, 2 K2, 3 K2's
+// first design) at c conformers, K2 at a [g_cap, r_pad] table: out[0..3] =
+// registers per thread, local (spill) bytes per thread, dynamic shared
+// memory per block, blocks per SM. Returns -1 for another kernel or c, -2
+// when the table does not fit.
+int screen_kernel_resources(int kernel, int c, int g_cap, int r_pad, int* out) {
+#define CALL(C) resources_c<C>(kernel, g_cap, r_pad, out)
+    DISPATCH_C(c, CALL)
+#undef CALL
+}
 
 }  // extern "C"

@@ -12,7 +12,11 @@ of the tensors' device, or raises: a failed build or launch is never
 turned into a call to the plain version. `LAUNCHES` counts kernel
 launches, one per launch, so a run can show that its path went through the
 kernels; `MODE_LAUNCHES` splits the counts of P3 and P4 by mode
-("score_tiles_fused_ablation[noscan]", ...).
+("score_tiles_fused_ablation[noscan]", ...). K2's first design stays
+launchable as `score_tiles_v3_baseline_rows` (K1's is P3's `full`), so that
+chip_smoke.py and the GPU tests can hold K1 and K2 to them bit for bit;
+`kernel_resources` gives the registers, shared memory and blocks per SM of
+both designs.
 """
 
 from __future__ import annotations
@@ -42,7 +46,11 @@ VARIANT_IDS = {"full": 0, "b4d": 1, "ohbf16": 2}  # P4
 LAUNCHES = {"score_tiles_fused_rows": 0, "score_tiles_v3": 0, "score_tiles_fused_dt": 0,
             "score_blocks_fused": 0, "gaussian_phase": 0, "gaussian_phase_gather": 0,
             "gaussian_phase_local": 0, "score_tiles_fused_ablation": 0,
-            "score_tiles_fused_variant": 0}
+            "score_tiles_fused_variant": 0, "score_tiles_v3_baseline": 0}
+# kernel ids of screen_kernel_resources: K1, K1's first design (P3 `full`),
+# K2, K2's first design
+RESOURCE_IDS = {"score_tiles_fused_rows": 0, "score_tiles_fused_ablation[full]": 1,
+                "score_tiles_v3": 2, "score_tiles_v3_baseline": 3}
 MODE_LAUNCHES = {
     **{f"score_tiles_fused_ablation[{m}]": 0 for m in ABLATION_FLAGS},
     **{f"score_tiles_fused_variant[{m}]": 0 for m in VARIANT_IDS},
@@ -88,6 +96,10 @@ def load_library() -> ctypes.CDLL:
         lib.screen_tiles_fused_dt.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
         lib.screen_tiles_v3.restype = i
         lib.screen_tiles_v3.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
+        lib.screen_tiles_v3_baseline.restype = i
+        lib.screen_tiles_v3_baseline.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
+        lib.screen_kernel_resources.restype = i
+        lib.screen_kernel_resources.argtypes = [i, i, i, i, vp]
         lib.screen_gauss_gather.restype = i
         lib.screen_gauss_gather.argtypes = [vp, ctypes.c_longlong, vp, vp, vp, vp, vp, i, i, vp]
         lib.screen_gauss_local.restype = i
@@ -156,6 +168,15 @@ def _tile_major(pos_blocks, uv, gtab, aux) -> tuple[int, int]:
     return t, c
 
 
+def _check_aligned(**tensors: torch.Tensor) -> None:
+    """K1 and K2 stage their per-tile tables by TMA, which copies 16-byte
+    units from 16-byte aligned addresses."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel reads it in 16-byte units from a 16-byte "
+                             f"aligned address, not {t.data_ptr():#x}")
+
+
 def _row_tables(ns: int, muT, invT, winvT) -> None:
     """Checks the row layout's Gaussian tables [P, NS], NS whole tiles."""
     if ns % TILE:
@@ -192,10 +213,12 @@ def score_tiles_fused_rows(
     if _on_cpu(pos_blocks, uv, gtab, aux):
         return screen_ref.score_tiles_fused_rows(pos_blocks, uv, gtab, aux, depth1, depth2)
     t, c = _tile_major(pos_blocks, uv, gtab, aux)
+    _check_aligned(pos_blocks=pos_blocks, uv=uv)
     lib = load_library()
     out = torch.empty((t * TILE, c), dtype=torch.float32, device=pos_blocks.device)
-    _launch("score_tiles_fused_rows", pos_blocks.device, lib.screen_tiles_fused,
-            pos_blocks, uv, gtab, aux, out, t, c, int(depth1), int(depth2))
+    if t:
+        _launch("score_tiles_fused_rows", pos_blocks.device, lib.screen_tiles_fused,
+                pos_blocks, uv, gtab, aux, out, t, c, int(depth1), int(depth2))
     return out
 
 
@@ -221,17 +244,26 @@ def score_tiles_fused_dt_rows(
     return out
 
 
+def _v3_layout_bytes(c: int, g_cap: int, r_pad: int, stages: int) -> int:
+    """K2's shared memory with `stages` buffers (csrc v3_layout): two
+    mbarriers, then per stage the group table's entry limits, the tile's
+    gid, its [g_cap, r_pad] table and a scan buffer."""
+    limits = -(-4 * stages * g_cap // 16) * 16
+    return 16 + limits + 4 * stages * (TILE + g_cap * r_pad + (2 * c + 1) * TILE)
+
+
 def v3_shared_bytes(c: int, g_cap: int, r_pad: int) -> int:
-    """Shared memory one K2 block needs: the tile's [g_cap, r_pad] group
-    table plus the scan buffers. Raises when it exceeds what a block may
-    use (g_cap grows when one pair references many groups)."""
-    smem = 4 * (g_cap * r_pad + (2 * c + 1) * TILE)
-    if smem > MAX_SMEM:
-        raise ValueError(
-            f"score_tiles_v3: a [{g_cap}, {r_pad}] group table with {c} conformers "
-            f"needs {smem} bytes of shared memory per block; the card allows {MAX_SMEM}"
-        )
-    return smem
+    """Shared memory one K2 block needs: double buffers where they fit a
+    block, else single ones (as the kernel chooses). Raises when neither
+    fits (g_cap grows when one pair references many groups)."""
+    for stages in (2, 1):
+        smem = _v3_layout_bytes(c, g_cap, r_pad, stages)
+        if smem <= MAX_SMEM:
+            return smem
+    raise ValueError(
+        f"score_tiles_v3: a [{g_cap}, {r_pad}] group table with {c} conformers "
+        f"needs {smem} bytes of shared memory per block; the card allows {MAX_SMEM}"
+    )
 
 
 def score_tiles_v3_rows(
@@ -247,6 +279,22 @@ def score_tiles_v3_rows(
     staged in shared memory; a table too large for one block raises."""
     if _on_cpu(dt, gid, tab, aux):
         return screen_ref.score_tiles_v3_rows(dt, gid, tab, aux, depth, mn_cap)
+    t, c, g_cap, r_pad = _v3_inputs(dt, gid, tab, aux, mn_cap)
+    v3_shared_bytes(c, g_cap, r_pad)
+    if g_cap * r_pad % 4:
+        raise ValueError(f"score_tiles_v3: a [{g_cap}, {r_pad}] group table is not a whole "
+                         "number of 16-byte units (the kernel stages it by TMA)")
+    _check_aligned(gid=gid, tab=tab)
+    lib = load_library()
+    out = torch.empty((t * TILE, c), dtype=torch.float32, device=dt.device)
+    if t:
+        _launch("score_tiles_v3", dt.device, lib.screen_tiles_v3, dt, gid, tab, aux, out,
+                t, c, g_cap, r_pad, int(mn_cap), int(depth))
+    return out
+
+
+def _v3_inputs(dt, gid, tab, aux, mn_cap: int) -> tuple[int, int, int, int]:
+    """(T, C, g_cap, r_pad) of K2's inputs, checked."""
     t, c = _dt_conformers(dt)
     if tab.dim() != 3 or tab.shape[0] != t or tab.shape[2] < 3 * mn_cap + 1:
         raise ValueError(f"tab must be [{t}, G, R >= {3 * mn_cap + 1}], got {tuple(tab.shape)}")
@@ -255,12 +303,46 @@ def score_tiles_v3_rows(
     _check("gid", gid, torch.int32, (t, TILE))
     _check("tab", tab, torch.float32, (t, g_cap, r_pad))
     _check("aux", aux, torch.float32, (t, 3, TILE))
-    v3_shared_bytes(c, g_cap, r_pad)
+    return t, c, g_cap, r_pad
+
+
+def score_tiles_v3_baseline_rows(
+    dt: torch.Tensor, gid: torch.Tensor, tab: torch.Tensor, aux: torch.Tensor,
+    depth: int, mn_cap: int,
+) -> torch.Tensor:
+    """K2's first design (one block per tile, the group table staged behind
+    a barrier, every mn_cap entry evaluated, a block-wide scan): the
+    baseline that K2 is held to bit for bit. No route calls it."""
+    if _on_cpu(dt, gid, tab, aux):
+        return screen_ref.score_tiles_v3_rows(dt, gid, tab, aux, depth, mn_cap)
+    t, c, g_cap, r_pad = _v3_inputs(dt, gid, tab, aux, mn_cap)
+    smem = 4 * (g_cap * r_pad + (2 * c + 1) * TILE)
+    if smem > MAX_SMEM:
+        raise ValueError(f"score_tiles_v3_baseline: {smem} bytes of shared memory per block; "
+                         f"the card allows {MAX_SMEM}")
     lib = load_library()
     out = torch.empty((t * TILE, c), dtype=torch.float32, device=dt.device)
-    _launch("score_tiles_v3", dt.device, lib.screen_tiles_v3, dt, gid, tab, aux, out,
-            t, c, g_cap, r_pad, int(mn_cap), int(depth))
+    if t:
+        _launch("score_tiles_v3_baseline", dt.device, lib.screen_tiles_v3_baseline, dt, gid,
+                tab, aux, out, t, c, g_cap, r_pad, int(mn_cap), int(depth))
     return out
+
+
+def kernel_resources(name: str, c: int, g_cap: int = 16, r_pad: int = 128,
+                     device: torch.device | None = None) -> dict:
+    """Registers and local (spill) bytes per thread, dynamic shared memory
+    per block and resident blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of K1, K2 or their
+    first designs (RESOURCE_IDS) at `c` conformers, K2 at a [g_cap, r_pad]
+    group table, on the card."""
+    lib = load_library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device or torch.device("cuda", torch.cuda.current_device())):
+        rc = lib.screen_kernel_resources(RESOURCE_IDS[name], c, g_cap, r_pad,
+                                         ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"{name}: resource query failed (error {rc})")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm"), out))
 
 
 def score_tiles_v3_pairs(

@@ -103,6 +103,44 @@ def scan_bounded_tile(val: torch.Tensor, seen: torch.Tensor, depth: int) -> torc
     return val
 
 
+def scan_bounded_windows(val: torch.Tensor, seen: torch.Tensor, depth: int,
+                         width: int = 32) -> torch.Tensor:
+    """scan_bounded_tile computed window by window, as the CUDA K1 and K2
+    scan inside each warp (csrc/screen_fused.cu `scan_rows`): each
+    `width`-row window is scanned from its own rows plus the 2^depth - 1
+    rows before it, and keeps its own rows. Rows before the tile are starts
+    holding 0, and a row whose predecessor lies before its window acts as a
+    start. After k steps a row depends only on its own and the 2^k - 1 rows
+    before it, so every kept row equals scan_bounded_tile's bit for bit.
+    Nothing on the screening path calls it: the tests prove the kernels'
+    decomposition with it on the CPU."""
+    t, r, tile = val.shape
+    if tile % width:
+        raise ValueError(f"the tile length {tile} is not a multiple of the window {width}")
+    halo = (1 << depth) - 1
+    dev = val.device
+    firsts = torch.arange(0, tile, width, device=dev)[:, None]
+    rows = firsts + torch.arange(-halo, width, device=dev)  # [windows, halo + width]
+    real = rows >= 0
+    flat = rows.clamp(min=0).reshape(-1)
+    wval = torch.where(real.reshape(-1), val[..., flat], 0.0).reshape(t, r, *rows.shape)
+    wseen = torch.where(real.reshape(-1), seen[..., flat], 1.0).reshape(t, *rows.shape)
+    local = torch.arange(rows.shape[1], device=dev)
+    shift = 1
+    for _ in range(depth):
+        if shift >= tile:
+            break
+        can = ((local >= shift) & (rows >= shift)).to(val.dtype)  # [windows, L]
+        m = can * (1.0 - wseen)  # [T, windows, L]
+        seen_r = torch.cat([torch.zeros_like(wseen[..., :shift]), wseen[..., :-shift]], dim=-1)
+        seen_s = torch.maximum(seen_r * can, 1.0 - can)
+        val_r = torch.cat([torch.zeros_like(wval[..., :shift]), wval[..., :-shift]], dim=-1)
+        wval = wval + val_r * m[:, None]
+        wseen = torch.maximum(wseen, seen_s)
+        shift *= 2
+    return wval[..., halo:].reshape(t, r, tile)
+
+
 def scan_fail_tail(
     scores: torch.Tensor, npass: torch.Tensor, fb, fp, mninv, mnhalf, gate,
     thr, selff, depth1: int, depth2: int,

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import threading
 
+import numpy as np
 import pytest
 import torch
 
@@ -142,7 +143,7 @@ def test_cuda_kernels_match_plain(cuda, c):
                                     "score_tiles_fused_dt": 0, "score_blocks_fused": 1,
                                     "gaussian_phase": 1, "gaussian_phase_gather": 0,
                                     "gaussian_phase_local": 0, "score_tiles_fused_ablation": 0,
-                                    "score_tiles_fused_variant": 0}
+                                    "score_tiles_fused_variant": 0, "score_tiles_v3_baseline": 0}
 
 
 @pytest.mark.gpu
@@ -237,6 +238,175 @@ def test_cuda_screener_keeps_its_stream_across_threads(cuda):
     worker.join(timeout=120)
     assert not worker.is_alive() and len(got) == 1
     torch.testing.assert_close(torch.tensor(got[0]), torch.tensor(want), rtol=RTOL, atol=ATOL)
+
+
+# --------------------------------------------------------------------------
+# K1 and K2 against their first designs, bit for bit (K1's is P3's `full`)
+# --------------------------------------------------------------------------
+ALL_CONFORMERS = list(range(1, 9))
+
+
+def _segment_flags(rng, tiles: int, longest: int) -> np.ndarray:
+    """[tiles, TILE] f32 segment starts: one at every tile start, segments
+    of 1..longest rows."""
+    flags = np.zeros((tiles, 1024), dtype=np.float32)
+    for t in range(tiles):
+        pos = 0
+        while pos < 1024:
+            flags[t, pos] = 1.0
+            pos += int(rng.integers(1, longest + 1))
+    return flags
+
+
+def _random_k1(c: int, tiles: int, depth1: int, depth2: int, seed: int, device):
+    """K1's inputs at random: node tables, uv slots, Gaussian tables with a
+    quarter of the weights 0, and block and pair segments as long as the
+    depths reach (depth2 > 5: pairs longer than a warp)."""
+    rng = np.random.default_rng(seed)
+    pos = rng.normal(scale=4.0, size=(tiles, 3 * c, 64)).astype(np.float32)
+    uv = rng.integers(0, 64 * 64, size=(tiles, 1024), dtype=np.int32)
+    mu = rng.uniform(1.0, 8.0, size=(tiles, 8, 1024))
+    inv = rng.uniform(0.2, 2.0, size=(tiles, 8, 1024))
+    winv = rng.uniform(0.0, 1.0, size=(tiles, 8, 1024)) * (rng.random((tiles, 8, 1024)) > 0.25)
+    gtab = np.stack([mu, inv, winv], axis=1).astype(np.float32)
+    aux = np.stack([
+        _segment_flags(rng, tiles, 1 << depth1), _segment_flags(rng, tiles, 1 << depth2),
+        rng.uniform(0.1, 1.0, size=(tiles, 1024)), rng.integers(0, 5, size=(tiles, 1024)),
+        (rng.random((tiles, 1024)) > 0.5), rng.integers(0, 3, size=(tiles, 1024)),
+        (rng.random((tiles, 1024)) > 0.8),
+    ], axis=1).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (pos, uv, gtab, aux)]
+
+
+def _random_k2(c: int, tiles: int, g_cap: int, mn_cap: int, depth: int, seed: int, device,
+               outside: bool = False):
+    """K2's inputs at random: per group mn valid entries with w = 0 above
+    mn (and some zero weights below it), gid slots (with `outside`, some
+    outside the table), pair segments as long as the depth reaches."""
+    rng = np.random.default_rng(seed)
+    r_pad = -(-(3 * mn_cap + 1) // 128) * 128
+    tab = np.zeros((tiles, g_cap, r_pad), dtype=np.float32)
+    mn = rng.integers(0, mn_cap + 1, size=(tiles, g_cap))
+    k = np.arange(mn_cap)
+    tab[:, :, :mn_cap] = rng.uniform(1.0, 8.0, size=(tiles, g_cap, mn_cap))
+    tab[:, :, mn_cap : 2 * mn_cap] = rng.uniform(0.2, 2.0, size=(tiles, g_cap, mn_cap))
+    w = rng.uniform(0.0, 1.0, size=(tiles, g_cap, mn_cap)) * (rng.random((tiles, g_cap, mn_cap)) > 0.2)
+    tab[:, :, 2 * mn_cap : 3 * mn_cap] = np.where(k < mn[..., None], w, 0.0)
+    tab[:, :, 3 * mn_cap] = (mn + 1) // 2
+    dt = rng.uniform(0.5, 9.0, size=(tiles, c, 1024)).astype(np.float32)
+    gid = rng.integers(-outside, g_cap + outside, size=(tiles, 1024), dtype=np.int32)
+    aux = np.stack([_segment_flags(rng, tiles, 1 << depth),
+                    rng.integers(0, 3, size=(tiles, 1024)),
+                    rng.random((tiles, 1024)) > 0.7], axis=1).astype(np.float32)
+    kw = dict(depth=depth, mn_cap=mn_cap)
+    return [torch.from_numpy(a).to(device) for a in (dt, gid, tab, aux)], kw
+
+
+def _k1_pair(args, d):
+    """(K1, its first design) on the same inputs."""
+    return (screen_cuda.score_tiles_fused_rows(*args, *d),
+            screen_cuda.score_tiles_fused_ablation(*args, *d, "full"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", ALL_CONFORMERS)
+def test_cuda_k1_bit_equal_to_its_first_design(cuda, c):
+    """On a packed batch (windowed scans) and on random layouts whose
+    segments outrun a warp (depth 6 and 7: the block-wide branch) or need
+    no scan step (depth 0), with more tiles than the card holds blocks."""
+    tb, _ = _layouts(c)
+    cases = [(_k1_args(tb, cuda), (tb.depth1, tb.depth2))]
+    cases += [(_random_k1(c, tiles, d1, d2, 10 * c + d2, cuda), (d1, d2))
+              for tiles, d1, d2 in ((3, 1, 3), (2, 6, 7), (300, 2, 5), (1, 0, 0))]
+    for args, d in cases:
+        got, want = _k1_pair(args, d)
+        assert torch.equal(got, want), d
+        assert_scores_close(got, screen_ref.score_tiles_fused_rows(*args, *d))
+
+
+@pytest.mark.gpu
+def test_cuda_k1_bit_equal_on_the_headline_batch(cuda):
+    """The headline batch (2048 ligands x 4 conformers, 20-cluster model)."""
+    pm = PackedModel.from_model(make_synthetic_model(num_clusters=20, seed=0))
+    tb = build_tiled_batch(pm, make_synthetic_ligands(2048, num_conformers=4, seed=1), threads=8)
+    args = _k1_args(tb, cuda)
+    got, want = _k1_pair(args, (tb.depth1, tb.depth2))
+    assert args[0].shape[0] > 1000 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", ALL_CONFORMERS)
+def test_cuda_k2_bit_equal_to_its_first_design(cuda, c):
+    """On the screener's v3 layout and on random tables: windowed and
+    block-wide scans, no scan, gid slots outside the table, and a table too
+    large for the double buffers (single ones)."""
+    (_, _), (k2, _, kw) = _stored_args(c, cuda)
+    cases = [(k2, kw)]
+    cases += [_random_k2(c, tiles, g_cap, mn_cap, depth, 7 * c + depth, cuda, outside)
+              for tiles, g_cap, mn_cap, depth, outside in
+              ((3, 16, 16, 3, False), (2, 16, 24, 6, False), (300, 16, 8, 4, False),
+               (2, 16, 16, 0, False), (3, 256, 16, 2, False), (3, 16, 16, 3, True))]
+    for args, kw in cases:
+        g_cap, r_pad = args[2].shape[1:]
+        double = screen_cuda._v3_layout_bytes(c, g_cap, r_pad, 2) <= screen_cuda.MAX_SMEM
+        assert double or screen_cuda.v3_shared_bytes(c, g_cap, r_pad) == \
+            screen_cuda._v3_layout_bytes(c, g_cap, r_pad, 1)
+        got = screen_cuda.score_tiles_v3_rows(*args, **kw)
+        assert torch.equal(got, screen_cuda.score_tiles_v3_baseline_rows(*args, **kw)), kw
+        if bool(((args[1] >= 0) & (args[1] < g_cap)).all()):  # the plain gather's range
+            assert_scores_close(got, screen_ref.score_tiles_v3_rows(*args, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", ["dense", "sparse"])
+def test_cuda_k2_on_v3_stores_of_both_leaf_wires(cuda, tmp_path, wire):
+    """Every batch of a v3 store of either leaf wire: K2 bit-equal to its
+    first design, and the store screened on the card as on the CPU."""
+    from pharmaconet_tpu_torch.scoring.tiled_store import TiledStore, write_v3_store
+
+    pm = PackedModel.from_model(make_synthetic_model(num_clusters=20, seed=0))
+    ligands = make_synthetic_ligands(96, seed=1)
+    names = [f"l{i}" for i in range(len(ligands))]
+    write_v3_store(tmp_path / wire, pm, ligands, names, batch_size=32, verbose=False,
+                   leaf_wire=wire, device=cuda)
+    store = TiledStore(tmp_path / wire, pm)
+    for bi in range(store.n_batches):
+        sb = store.load(bi)
+        args = [torch.from_numpy(np.array(a)).to(cuda) for a in (sb.dt, sb.gid, sb.tab, sb.aux)]
+        kw = dict(depth=sb.depth, mn_cap=sb.mn_cap)
+        assert torch.equal(screen_cuda.score_tiles_v3_rows(*args, **kw),
+                           screen_cuda.score_tiles_v3_baseline_rows(*args, **kw))
+    want = [s for bi in range(store.n_batches)
+            for s in BatchScreener(pm, device="cpu").score_stored(store.load(bi))]
+    got = [s for bi in range(store.n_batches)
+           for s in BatchScreener(pm, device=cuda).score_stored(store.load(bi))]
+    torch.testing.assert_close(torch.tensor(got), torch.tensor(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_cuda_zero_tiles_launch_nothing(cuda):
+    """K1 and K2 on zero tiles return empty rows and launch nothing."""
+    k1 = [a[:0] for a in _random_k1(4, 1, 1, 3, 0, cuda)]
+    k2, kw = _random_k2(4, 1, 16, 16, 3, 0, cuda)
+    screen_cuda.reset_launch_counts()
+    assert screen_cuda.score_tiles_fused_rows(*k1, 1, 3).shape == (0, 4)
+    assert screen_cuda.score_tiles_v3_rows(*[a[:0] for a in k2], **kw).shape == (0, 4)
+    torch.cuda.synchronize()
+    assert screen_cuda.LAUNCHES["score_tiles_fused_rows"] == 0
+    assert screen_cuda.LAUNCHES["score_tiles_v3"] == 0
+
+
+@pytest.mark.gpu
+def test_cuda_k1_k2_resources(cuda):
+    """Registers, shared memory and blocks per SM of K1, K2 and their first
+    designs: every design fits a block of 1024 threads per SM at every C."""
+    for name in screen_cuda.RESOURCE_IDS:
+        for c in ALL_CONFORMERS:
+            res = screen_cuda.kernel_resources(name, c)
+            assert res["blocks_per_sm"] >= 1 and 0 < res["registers"] <= 64, (name, c, res)
+            assert res["shared_bytes"] <= screen_cuda.MAX_SMEM, (name, c, res)
+    big = screen_cuda.kernel_resources("score_tiles_v3", 8, g_cap=256, r_pad=128)
+    assert big["shared_bytes"] == screen_cuda.v3_shared_bytes(8, 256, 128)
 
 
 def _pocket_atoms(tmp_path, device, keep: int | None = None):
