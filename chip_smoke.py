@@ -27,13 +27,20 @@ Phases, in order; any failure exits non-zero:
                reference engine; K2 held against its plain version and, bit
                for bit, its first design (screen_tiles_v3_baseline), both
                timed on the default store's first batch, which is the
-               headline batch at the shape the store pins for every batch
+               headline batch at the shape the store pins for every batch;
+               then 256 ligands x 12 conformers (more than one launch takes,
+               so the wrappers launch per group of conformer columns)
+               through --library (K1), a v3 store (K2) and a v2 store (K3),
+               every score against the reference engine, launch counts read
   7. modeling — pocket modeling at the published architecture's full width
                (SwinV2-3D embed 96, depths 2/6/2/2, 64^3 x 33 input) on a
                synthetic pocket with a synthesized checkpoint: K6 held
-               against its plain version on the pocket's padded atoms and
-               timed; the modeling CLI (K6 launch count reset just before,
-               read just after); its float32-segmentation run held against
+               against its plain version on the pocket's padded atoms and,
+               bit for bit, its first design (voxelize_pallas_baseline),
+               both timed in the same rounds; K6's two launches timed
+               apart (python -m pharmaconet_tpu_torch.probes.probe_voxelize,
+               a subprocess); the modeling CLI (K6 launch
+               count reset just before, read just after: once per pocket); its float32-segmentation run held against
                PharmacoNet(voxelizer="reference"); how far the default TF32
                mask decoder moves the maps (printed, not gated); the
                host-clock stages of one pocket
@@ -49,11 +56,13 @@ Then prints the {"kernels": [...]} line, the nvidia-smi name/power line, and
 last {"ok": true, "device": {...}}. A kernel's `ms` is one call between two
 CUDA events (host work included), `stream_ms` its time per call back to
 back with no wait for the host (`stream_gapless`), and `enqueue_ms` the
-host's time to enqueue one (probes/timing.py). K1's and K2's entries add
-their first designs' `baseline_ms` and `baseline_stream_ms` (same timers,
-same rounds), `bit_equal_to_baseline`, and `occupancy` /
+host's time to enqueue one (probes/timing.py). K1's, K2's and K6's entries
+add their first designs' `baseline_ms` and `baseline_stream_ms` (same
+timers, same rounds), `bit_equal_to_baseline`, and `occupancy` /
 `baseline_occupancy`: registers and local bytes per thread, shared memory
-per block and blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+per block and blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+K6's `occupancy` per kernel of its two launches). K1-K3 add their launch
+counts on the 12-conformer routes.
 """
 
 from __future__ import annotations
@@ -450,7 +459,8 @@ def stored_stage_ms(screener, store, bi: int) -> dict[str, float]:
 
 
 def run_stored_cli(kernel: str, batches: int, version: int, pm, packed, names, ref, dev,
-                   card: str) -> tuple[int, Path]:
+                   card: str, tag: str | None = None, batch_size: int = N_BATCH,
+                   stages: bool = True) -> tuple[int, Path]:
     """Port prepack writes a store of the first `batches` batches of the
     library, screening --library_tiles scores it; the CSV must match the
     reference engine and `kernel` must have launched in the screen.
@@ -462,15 +472,15 @@ def run_stored_cli(kernel: str, batches: int, version: int, pm, packed, names, r
     from pharmaconet_tpu_torch.scoring.library import save_library
     from pharmaconet_tpu_torch.scoring.tiled_store import TiledStore
 
-    n = N_BATCH * batches
-    tag = f"v{version}"
+    n = batch_size * batches
+    tag = tag or f"v{version}"
     save_library(WORK / f"lib_{tag}.npz", packed[:n], names[:n])
     tiles = WORK / f"tiles_{tag}"
     t0 = time.perf_counter()
     rc = prepack.main(prepack.build_parser().parse_args([
         "--library", str(WORK / f"lib_{tag}.npz"), "-p", str(WORK / "model.pm"),
         "--tiles_out", str(tiles), "--tiles_version", str(version),
-        "--batch_size", str(N_BATCH), "--pack_threads", "8", "--device", str(dev),
+        "--batch_size", str(batch_size), "--pack_threads", "8", "--device", str(dev),
     ]))
     if rc != 0:
         raise AssertionError(f"prepack --tiles_version {version} exited {rc}")
@@ -496,6 +506,8 @@ def run_stored_cli(kernel: str, batches: int, version: int, pm, packed, names, r
         f"max |score - reference| {worst:.3g}")
     if counts[kernel] < 1:
         raise AssertionError(f"--library_tiles {tag} never launched {kernel}")
+    if not stages:
+        return counts[kernel], tiles
     store = TiledStore(tiles)
     stages = stored_stage_ms(BatchScreener(pm, device=dev, pack_threads=1), store, 0)
     log(f"  stages of one stored {tag} batch (host clock, median of 3): "
@@ -532,6 +544,53 @@ def phase_stored(pm, packed, names, ref, dev, kernels: dict, card: str) -> None:
         raise AssertionError("the v3 route without leaves never launched score_tiles_v3")
 
 
+MANY_CONFORMERS, MANY_LIGANDS, MANY_BATCH = 12, 256, 128
+
+
+def phase_many_conformers(model, pm, dev, kernels: dict, card: str) -> None:
+    """A library of 256 ligands with 12 conformers each (more than one
+    launch takes: the wrappers score groups of conformer columns) screened
+    through --library (K1), a v3 store (K2 + leaf chain) and a v2 store
+    (K3), every score against the reference engine, each route's launch
+    counts reset just before and read just after."""
+    from pharmaconet_tpu_torch.cli.screening import build_parser, main
+    from pharmaconet_tpu_torch.ops import screen_cuda
+    from pharmaconet_tpu_torch.scoring.batch_screen import BatchScreener
+    from pharmaconet_tpu_torch.scoring.library import save_library
+    from pharmaconet_tpu_torch.synthetic import make_synthetic_ligands
+
+    packed = make_synthetic_ligands(MANY_LIGANDS, num_conformers=MANY_CONFORMERS, seed=5)
+    names = [f"many{i:03d}" for i in range(MANY_LIGANDS)]
+    ref_screener = BatchScreener(pm, engine="reference", device=dev)
+    ref = dict(zip(names, ref_screener.score_packed(packed)))
+    batches = MANY_LIGANDS // MANY_BATCH
+    least = batches * len(screen_cuda.conformer_groups(MANY_CONFORMERS))  # a launch per group
+    save_library(WORK / "lib_many.npz", packed, names)
+    args = build_parser().parse_args([
+        "-p", str(WORK / "model.pm"), "--library", str(WORK / "lib_many.npz"),
+        "-o", str(WORK / "many.csv"), "--batch_size", str(MANY_BATCH), "--device", str(dev),
+    ])
+    screen_cuda.reset_launch_counts()
+    rc = main(args)
+    torch.cuda.synchronize()
+    counts = dict(screen_cuda.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"--library ({MANY_CONFORMERS} conformers) exited {rc}")
+    worst = check_scores(f"--library {MANY_CONFORMERS} conformers", read_csv(WORK / "many.csv"), ref)
+    log(f"  --library, {MANY_LIGANDS} ligands x {MANY_CONFORMERS} conformers: launches "
+        f"{ {k: v for k, v in counts.items() if v} }, max |score - reference| {worst:.3g}")
+    launches = {"score_tiles_fused_rows": counts["score_tiles_fused_rows"]}
+    for kernel, version in (("score_tiles_v3", 3), ("score_tiles_fused_dt", 2)):
+        launches[kernel], _ = run_stored_cli(kernel, batches, version, pm, packed, names, ref,
+                                             dev, card, tag=f"many_v{version}",
+                                             batch_size=MANY_BATCH, stages=False)
+    for kernel, n in launches.items():
+        if n < least:
+            raise AssertionError(f"{kernel}: {n} launches for {MANY_CONFORMERS} conformers in "
+                                 f"{batches} batches; the conformer groups need {least}")
+        kernels[kernel][f"launches_{MANY_CONFORMERS}_conformers"] = n
+
+
 # --------------------------------------------------------------------------
 # Phase 7: pocket modeling
 # --------------------------------------------------------------------------
@@ -559,12 +618,16 @@ def k6_pairs(args, dim: int = 64) -> int:
 
 def k6_entry(data, dev) -> dict:
     """K6 against its plain version on the pocket's padded atoms (the
-    4096 bucket, 64^3 grid): occupancy bit-equal, image within VOXEL_TOL."""
+    4096 bucket, 64^3 grid): occupancy bit-equal, image within VOXEL_TOL;
+    and bit for bit against its first design (voxelize_pallas_baseline),
+    both timed in the same rounds, with both designs' resources."""
     from pharmaconet_tpu_torch.ops import voxelize as plain, voxelize_cuda
+    from pharmaconet_tpu_torch.probes.timing import time_rounds
 
     args = [torch.from_numpy(a).to(dev) for a in (
         data.atom_positions, data.atom_features, data.atom_valid, data.center)]
     img, occ = voxelize_cuda.voxelize_pallas(*args)
+    base_img, base_occ = voxelize_cuda.voxelize_pallas_baseline(*args)
     want_img, want_occ = plain.voxelize(*args)
     torch.cuda.synchronize()
     occ_mism = int((occ != want_occ).sum())
@@ -572,18 +635,29 @@ def k6_entry(data, dev) -> dict:
     if occ_mism or not torch.allclose(img, want_img, atol=VOXEL_TOL, rtol=VOXEL_TOL):
         raise AssertionError(f"voxelize_pallas: kernel disagrees with its plain version "
                              f"(max abs err {err}, occupancy mismatches {occ_mism})")
+    if not (torch.equal(img, base_img) and torch.equal(occ, base_occ)):
+        raise AssertionError(f"voxelize_pallas: {int((img != base_img).sum())} image values and "
+                             f"{int((occ != base_occ).sum())} occupancy values differ from its "
+                             "first design's")
     pairs = k6_pairs(args)
     nbytes = sum(t.numel() * t.element_size() for t in args) + img.numel() * 4 + occ.numel()
     ops = pairs * K6_OPS_PER_PAIR
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    kernel = lambda: voxelize_cuda.voxelize_pallas(*args)  # noqa: E731
+    times = time_rounds(dev, {"voxelize_pallas": lambda: voxelize_cuda.voxelize_pallas(*args),
+                              "baseline": lambda: voxelize_cuda.voxelize_pallas_baseline(*args)})
+    base = times["baseline"]
     entry = dict(
         name="voxelize_pallas", route="cuda", source="pharmaconet_tpu_torch/csrc/voxelize.cu",
         replaces="pharmaconet_tpu/ops/voxelize_pallas.py:145", launches=0, max_abs_err=err,
-        **timing_fields(kernel_times("voxelize_pallas", kernel), lambda: plain.voxelize(*args)),
+        **timing_fields(times["voxelize_pallas"], lambda: plain.voxelize(*args)),
         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=None, occupancy_mismatches=occ_mism, atoms=int(data.atom_valid.sum()),
         atom_bucket=int(data.atom_positions.shape[0]), pairs=pairs, bytes=nbytes, ops=ops,
+        baseline_ms=base.ms, baseline_stream_ms=base.stream_ms, baseline_enqueue_ms=base.enqueue_ms,
+        baseline_stream_gapless=base.gapless, bit_equal_to_baseline=True,
+        occupancy={part: voxelize_cuda.kernel_resources(f"voxelize_pallas[{part}]")
+                   for part in ("bin", "tile")},
+        baseline_occupancy=voxelize_cuda.kernel_resources("voxelize_pallas_baseline"),
     )
     log(f"  voxelize_pallas: {entry['atoms']} atoms (bucket {entry['atom_bucket']}), "
         f"{pairs} voxel-atom pairs within 1.5 A, occupancy mismatches 0, "
@@ -591,6 +665,9 @@ def k6_entry(data, dev) -> dict:
         f"(gapless {entry['stream_gapless']}) enqueue_ms={entry['enqueue_ms']:.4f} "
         f"plain_ms={entry['plain_ms']:.3f} "
         f"bound_ms={entry['bound_ms']:.4f} ({entry['bound_by']})")
+    log(f"    first design: bit-equal, ms={base.ms:.4f} stream_ms={base.stream_ms:.4f} "
+        f"(gapless {base.gapless}); occupancy {entry['occupancy']}, first design "
+        f"{entry['baseline_occupancy']}")
     return entry
 
 
@@ -612,8 +689,9 @@ def run_modeling_cli(pdb: Path, center, ckpt: Path, out_dir: Path, dev, *extra: 
     launches = voxelize_cuda.LAUNCHES["voxelize_pallas"]
     if rc != 0:
         raise AssertionError(f"modeling CLI {' '.join(extra)} exited {rc}")
-    if launches < 1:
-        raise AssertionError("the modeling CLI never launched voxelize_pallas")
+    if launches != 1:
+        raise AssertionError(f"the modeling CLI launched voxelize_pallas {launches} times, "
+                             "not once per pocket")
     return out_dir / f"pocket_{x}_{y}_{z}_model.pm", wall, launches
 
 
@@ -716,6 +794,9 @@ def phase_modeling(dev, kernels: dict, card: str) -> None:
         f"{int(data.token_valid.sum())} tokens in the 64^3 box; checkpoint seed {CKPT_SEED} "
         f"scale {CKPT_SCALE}")
     kernels["voxelize_pallas"] = k6_entry(data, dev)
+    split = run_probe("probe_voxelize", dev)["times"]  # K6's two launches apart
+    kernels["voxelize_pallas"]["phase_stream_ms"] = {
+        k: split[k]["stream_ms"] for k in ("bin", "tile", "store")}
 
     pm_path, wall, launches = run_modeling_cli(pdb, center, ckpt, WORK / "model", dev)
     kernels["voxelize_pallas"]["launches"] = launches
@@ -847,13 +928,13 @@ def probe_tile_entries(pm, ligands, cuda, times: dict) -> dict:
     return out
 
 
-def run_probe(name: str, dev) -> dict:
+def run_probe(name: str, dev, *extra: str) -> dict:
     """One probe entry point on the device in a subprocess; returns its
     last line (launch counts and times)."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", f"pharmaconet_tpu_torch.probes.{name}", "--device", str(dev),
-         "--ligands", str(N_BATCH)],
+         *extra],
         cwd=REPO, capture_output=True, text=True, timeout=600,
     )
     if proc.returncode != 0:
@@ -874,7 +955,7 @@ def phase_probes(pm, ligands, dev, kernels: dict) -> None:
 
     counts, times = {}, {}
     for probe in PROBES:
-        result = run_probe(probe, dev)
+        result = run_probe(probe, dev, "--ligands", str(N_BATCH))
         runs = {**result["launches"], **result["mode_launches"]}
         for name, n in runs.items():
             if n < 1:
@@ -917,6 +998,8 @@ def main() -> int:
         phase_dir(model, dev)
         log("[6] stored route")
         phase_stored(pm, packed, names, ref, dev, kernels, smi)
+        log(f"[6] {MANY_CONFORMERS} conformers per ligand: --library, v3 and v2 stores")
+        phase_many_conformers(model, pm, dev, kernels, smi)
         log("[7] pocket modeling at full width")
         phase_modeling(dev, kernels, smi)
         log("[8] probe kernels P1-P4 (headline batch)")

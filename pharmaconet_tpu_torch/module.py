@@ -45,6 +45,7 @@ from .ops import voxelize as voxelize_ref
 from .ops.postprocess import postprocess_density, sparse_compact
 from .ops.voxelize_cuda import voxelize_pallas
 from .pharmacophore.model import PharmacophoreModel
+from .utils.download_weight import resolve_weight_path
 
 logger = logging.getLogger("pharmaconet_tpu_torch")
 
@@ -114,8 +115,11 @@ class PharmacoNet:
     """End-to-end pharmacophore modeling on one torch device.
 
     weight_path: an upstream torch checkpoint (model.tar) or the JAX
-    package's .npz. None draws the JAX package's random parameters
-    (`_random_init_seed`); nothing is looked up or downloaded.
+    package's .npz. None looks for a provisioned checkpoint as the JAX
+    package does (`utils/download_weight.resolve_weight_path`:
+    PMNET_TPU_WEIGHT, then $PMNET_TPU_HOME/model.{npz,tar}) and, finding
+    none, draws the JAX package's random parameters (`_random_init_seed`);
+    nothing is downloaded.
     voxelizer: 'kernel' (K6 on CUDA tensors, its plain version on CPU
     tensors) or 'reference' (the plain torch version on any device).
     density_wire: 'sparse' ships each thresholded map to the host as
@@ -182,7 +186,13 @@ class PharmacoNet:
     # ------------------------------------------------------------------
     def _load_weights(self, weight_path):
         if weight_path is None:
-            logger.warning("no weights given: using random parameters")
+            # provisioned weights (PMNET_TPU_WEIGHT, then $PMNET_TPU_HOME)
+            try:
+                weight_path = resolve_weight_path(None)
+            except (FileNotFoundError, RuntimeError):
+                weight_path = None
+        if weight_path is None:
+            logger.warning("no weights available: using random parameters")
             state = random_state_dict(self.model.config, self._random_init_seed or 0)
             return state, random_distributions()
         weight_path = Path(weight_path)

@@ -17,6 +17,16 @@ launchable as `score_tiles_v3_baseline_rows` (K1's is P3's `full`), so that
 chip_smoke.py and the GPU tests can hold K1 and K2 to them bit for bit;
 `kernel_resources` gives the registers, shared memory and blocks per SM of
 both designs.
+
+The kernels are instantiated for 1..MAX_CONFORMERS conformers. K1-K5 take
+any count all the same: every conformer column is independent through the
+Gaussian phase, both bounded scans and the fail gates (the JAX package's
+`_gauss_phase` sums the distance over the 3 axes of one conformer,
+`_gauss_phase_dt` sums over model pairs, not conformers, and
+`_scan_bounded_tile` / `_scan_fail_tail` work row by row with [1, tile]
+flags shared by every row), so above the cap the wrappers launch once per
+group of at most MAX_CONFORMERS columns (`conformer_groups`) and join the
+outputs (`by_conformer_groups`). The probe kernels P1-P4 keep the cap.
 """
 
 from __future__ import annotations
@@ -153,9 +163,37 @@ def _dt_conformers(dt: torch.Tensor) -> tuple[int, int]:
 def _conformer_count(t: int, c: int) -> tuple[int, int]:
     if not 1 <= c <= MAX_CONFORMERS:
         raise ValueError(
-            f"{c} conformers per ligand; the CUDA screening kernels take 1..{MAX_CONFORMERS}"
+            f"{c} conformers per ligand; one launch of a CUDA screening kernel takes "
+            f"1..{MAX_CONFORMERS}"
         )
     return t, c
+
+
+def conformer_groups(c: int, cap: int = MAX_CONFORMERS) -> list[tuple[int, int]]:
+    """[c0, c1) column ranges that cover c conformers in the fewest groups
+    of at most `cap`, of sizes that differ by at most one."""
+    n = -(-c // cap)
+    bounds = [k * c // n for k in range(n + 1)]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def by_conformer_groups(fn, x: torch.Tensor, per: int, out_dim: int, stacked: bool = False,
+                        cap: int = MAX_CONFORMERS) -> torch.Tensor:
+    """`fn` over groups of at most `cap` conformers, joined: x carries `per`
+    rows of dim 1 per conformer (3 for node tables, 1 for distances); each
+    group's slice is copied out contiguous (a fresh allocation, so TMA's
+    16-byte alignment holds). The outputs join along `out_dim`; `stacked`
+    outputs ([2c, NS]: scores, then pass counts) join half by half."""
+    outs = [fn(x[:, per * c0 : per * c1].contiguous()) for c0, c1 in
+            conformer_groups(x.shape[1] // per, cap)]
+    if stacked:
+        outs = [o[: o.shape[0] // 2] for o in outs] + [o[o.shape[0] // 2 :] for o in outs]
+    return torch.cat(outs, out_dim)
+
+
+def _grouped(x: torch.Tensor, per: int) -> bool:
+    """True when x carries more conformers than one launch takes."""
+    return x.dim() == 3 and x.shape[1] // per > MAX_CONFORMERS
 
 
 def _tile_major(pos_blocks, uv, gtab, aux) -> tuple[int, int]:
@@ -212,6 +250,9 @@ def score_tiles_fused_rows(
     on failed cross pairs)."""
     if _on_cpu(pos_blocks, uv, gtab, aux):
         return screen_ref.score_tiles_fused_rows(pos_blocks, uv, gtab, aux, depth1, depth2)
+    if _grouped(pos_blocks, 3):
+        return by_conformer_groups(
+            lambda p: score_tiles_fused_rows(p, uv, gtab, aux, depth1, depth2), pos_blocks, 3, 1)
     t, c = _tile_major(pos_blocks, uv, gtab, aux)
     _check_aligned(pos_blocks=pos_blocks, uv=uv)
     lib = load_library()
@@ -233,6 +274,9 @@ def score_tiles_fused_dt_rows(
     rows (scores at pair-end rows, -1 on failed cross pairs)."""
     if _on_cpu(dt, gtab, aux):
         return screen_ref.score_tiles_fused_dt_rows(dt, gtab, aux, depth1, depth2)
+    if _grouped(dt, 1):
+        return by_conformer_groups(
+            lambda d: score_tiles_fused_dt_rows(d, gtab, aux, depth1, depth2), dt, 1, 1)
     t, c = _dt_conformers(dt)
     _check("dt", dt, torch.float32, (t, c, TILE))
     _check("gtab", gtab, torch.float32, (t, 3, BLOCK_P, TILE))
@@ -279,6 +323,9 @@ def score_tiles_v3_rows(
     staged in shared memory; a table too large for one block raises."""
     if _on_cpu(dt, gid, tab, aux):
         return screen_ref.score_tiles_v3_rows(dt, gid, tab, aux, depth, mn_cap)
+    if _grouped(dt, 1):
+        return by_conformer_groups(
+            lambda d: score_tiles_v3_rows(d, gid, tab, aux, depth, mn_cap), dt, 1, 1)
     t, c, g_cap, r_pad = _v3_inputs(dt, gid, tab, aux, mn_cap)
     v3_shared_bytes(c, g_cap, r_pad)
     if g_cap * r_pad % 4:
@@ -315,6 +362,9 @@ def score_tiles_v3_baseline_rows(
     baseline that K2 is held to bit for bit. No route calls it."""
     if _on_cpu(dt, gid, tab, aux):
         return screen_ref.score_tiles_v3_rows(dt, gid, tab, aux, depth, mn_cap)
+    if _grouped(dt, 1):
+        return by_conformer_groups(
+            lambda d: score_tiles_v3_baseline_rows(d, gid, tab, aux, depth, mn_cap), dt, 1, 1)
     t, c, g_cap, r_pad = _v3_inputs(dt, gid, tab, aux, mn_cap)
     smem = 4 * (g_cap * r_pad + (2 * c + 1) * TILE)
     if smem > MAX_SMEM:
@@ -385,6 +435,10 @@ def score_blocks_fused(
         return screen_ref.score_blocks_fused(
             pos_blocks, uv_packed, muT, invT, winvT, *rows, depth1, depth2
         )
+    if _grouped(pos_blocks, 3):
+        return by_conformer_groups(
+            lambda p: score_blocks_fused(p, uv_packed, muT, invT, winvT, *rows, depth1, depth2),
+            pos_blocks, 3, 0)
     t, c = _conformers(pos_blocks)
     ns = t * TILE
     _check("pos_blocks", pos_blocks, torch.float32, (t, 3 * c, NODE_CAP))
@@ -412,6 +466,10 @@ def gaussian_phase(
     [0, C) scores, [C, 2C) pass counts."""
     if _on_cpu(pos_blocks, uv_packed, muT, invT, winvT):
         return screen_ref.gaussian_phase(pos_blocks, uv_packed, muT, invT, winvT)
+    if _grouped(pos_blocks, 3):
+        return by_conformer_groups(
+            lambda p: gaussian_phase(p, uv_packed, muT, invT, winvT), pos_blocks, 3, 0,
+            stacked=True)
     t, c = _conformers(pos_blocks)
     ns = t * TILE
     _check("pos_blocks", pos_blocks, torch.float32, (t, 3 * c, NODE_CAP))

@@ -214,11 +214,55 @@ def test_cuda_screener_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
-def test_cuda_kernel_rejects_too_many_conformers(cuda):
+@pytest.mark.parametrize("c", range(9, 17))
+def test_cuda_kernels_take_more_than_8_conformers(cuda, c):
+    """K1-K5 at C = 9..16 (one launch per group of at most 8 conformer
+    columns, outputs joined) against their plain versions over all C."""
+    tb, tiled = _layouts(c)
+    groups = len(screen_cuda.conformer_groups(c))
+    screen_cuda.reset_launch_counts()
+    args, d = _k1_args(tb, cuda), (tb.depth1, tb.depth2)
+    assert_scores_close(screen_cuda.score_tiles_fused_rows(*args, *d),
+                        screen_ref.score_tiles_fused_rows(*args, *d))
+    base, rows = _row_args(tiled, cuda)
+    rows = [r.float() for r in rows]
+    d = (tiled.depth1, tiled.depth2)
+    assert_scores_close(screen_cuda.score_blocks_fused(*base, *rows, *d),
+                        screen_ref.score_blocks_fused(*base, *rows, *d))
+    got, want = screen_cuda.gaussian_phase(*base), screen_ref.gaussian_phase(*base)
+    assert got.shape == (2 * c, base[1].shape[1]) and torch.equal(got[c:], want[c:])
+    assert_scores_close(got, want)
+    (k3, d), (k2, ends, kw) = _stored_args(c, cuda)
+    assert_scores_close(screen_cuda.score_tiles_fused_dt_rows(*k3, *d),
+                        screen_ref.score_tiles_fused_dt_rows(*k3, *d))
+    want = screen_ref.score_tiles_v3_rows(*k2, **kw)
+    assert_scores_close(screen_cuda.score_tiles_v3_rows(*k2, **kw), want)
+    assert_scores_close(screen_cuda.score_tiles_v3_pairs(*k2, ends, **kw),
+                        want.index_select(0, ends.long()))
+    torch.cuda.synchronize()
+    for name in ("score_tiles_fused_rows", "score_blocks_fused", "gaussian_phase",
+                 "score_tiles_fused_dt"):
+        assert screen_cuda.LAUNCHES[name] == groups, name
+    assert screen_cuda.LAUNCHES["score_tiles_v3"] == 2 * groups
+
+
+@pytest.mark.gpu
+def test_cuda_k2_bit_equal_to_its_first_design_beyond_8_conformers(cuda):
+    """Grouped K2 and its grouped first design, bit for bit, at C = 12."""
+    (_, _), (k2, _, kw) = _stored_args(12, cuda)
+    assert torch.equal(screen_cuda.score_tiles_v3_rows(*k2, **kw),
+                       screen_cuda.score_tiles_v3_baseline_rows(*k2, **kw))
+
+
+@pytest.mark.gpu
+def test_cuda_probe_kernels_keep_the_conformer_cap(cuda):
+    """The probe kernels P1-P4 run at their probes' fixed C: above the cap
+    they raise, as before."""
     pos = torch.zeros(1, 27, 64, device=cuda)
     flat = [torch.zeros(8, 1024, device=cuda) for _ in range(3)]
+    uv = torch.zeros(1024, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="conformers"):
-        screen_cuda.gaussian_phase(pos, torch.zeros(1, 1024, dtype=torch.int32, device=cuda), *flat)
+        screen_cuda.gaussian_phase_local(pos, uv, uv, *flat)
 
 
 @pytest.mark.gpu

@@ -217,9 +217,12 @@ def test_torch_tar_checkpoint_loads_the_same_network(case, port):
     assert tar.score_distributions.keys() == port.score_distributions.keys()
 
 
-def test_random_init_matches_jax():
-    """weight_path=None draws the JAX package's random parameters and
-    score distributions (and looks nothing up)."""
+def test_random_init_matches_jax(tmp_path, monkeypatch):
+    """weight_path=None with no checkpoint provisioned (no PMNET_TPU_WEIGHT,
+    an empty PMNET_TPU_HOME) draws the JAX package's random parameters and
+    score distributions."""
+    monkeypatch.delenv("PMNET_TPU_WEIGHT", raising=False)
+    monkeypatch.setenv("PMNET_TPU_HOME", str(tmp_path))
     net = PharmacoNet(weight_path=None, _random_init_seed=5, device="cpu", **KW)
     holder = SimpleNamespace(grid_dim=GRID, model=jax_build_model(GRID, **SMALL))
     want = state_dict_from_flax(jax.tree.map(np.asarray, JaxPharmacoNet._random_params(holder, 5)),
@@ -229,6 +232,86 @@ def test_random_init_matches_jax():
     rng = np.random.default_rng(0)
     for t, d in net.score_distributions.items():
         np.testing.assert_array_equal(d, np.sort(rng.uniform(0, 1, size=1000).astype(np.float32)))
+
+
+def _state_equal(net, want: PharmacoNet) -> bool:
+    got = net.model.state_dict()
+    return all(torch.equal(v, got[k]) for k, v in want.model.state_dict().items())
+
+
+def _jax_params_equal(net, want) -> bool:
+    a, b = jax.tree.leaves(net.params), jax.tree.leaves(want.params)
+    return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def test_weight_env_gives_equal_pm_in_both_packages(case, port, tmp_path, monkeypatch):
+    """weight_path=None with PMNET_TPU_WEIGHT pointed at the .npz: both
+    packages load it (the parameters of an explicit weight_path) and write
+    equal .pm files."""
+    monkeypatch.setenv("PMNET_TPU_WEIGHT", str(case.tmp / "small.npz"))
+    monkeypatch.setenv("PMNET_TPU_HOME", str(tmp_path))
+    net = PharmacoNet(weight_path=None, device="cpu", **KW)
+    jax_net = JaxPharmacoNet(weight_path=None, **KW)
+    assert _state_equal(net, port) and _jax_params_equal(jax_net, case.jax_net)
+    net.focus_threshold = jax_net.focus_threshold = 0.0
+    center = case.info["center"]
+    net.run(case.pdb, center=center).save(str(tmp_path / "port.pm"))
+    jax_net.run(case.pdb, center=center).save(str(tmp_path / "jax.pm"))
+    got, want = (pickle.loads((tmp_path / f).read_bytes()) for f in ("port.pm", "jax.pm"))
+    assert got["pdbblock"] == want["pdbblock"] and len(got["nodes"]) == len(want["nodes"]) > 0
+    for a, b in zip(got["nodes"], want["nodes"]):
+        assert (a["index"], a["type"], a["hotspot_position"]) == \
+            (b["index"], b["type"], b["hotspot_position"])
+        assert abs(a["score"] - b["score"]) <= 1e-6
+        np.testing.assert_allclose(a["center"], b["center"], atol=1e-5)
+    assert [(e["node_indices"], e["edge_type"]) for e in got["edges"]] == \
+        [(e["node_indices"], e["edge_type"]) for e in want["edges"]]
+
+
+@pytest.mark.parametrize("name", ["model.npz", "model.tar"])
+def test_weight_home_is_found(case, port, tmp_path, monkeypatch, name):
+    """weight_path=None finds $PMNET_TPU_HOME/model.npz (both packages) or
+    model.tar (the port; the JAX package reads the upstream tar through
+    torch)."""
+    import shutil
+
+    monkeypatch.delenv("PMNET_TPU_WEIGHT", raising=False)
+    monkeypatch.setenv("PMNET_TPU_HOME", str(tmp_path))
+    shutil.copy(case.tmp / ("small.npz" if name == "model.npz" else "small.tar"),
+                tmp_path / name)
+    assert _state_equal(PharmacoNet(weight_path=None, device="cpu", **KW), port)
+    if name == "model.npz":
+        assert _jax_params_equal(JaxPharmacoNet(weight_path=None, **KW), case.jax_net)
+
+
+def test_missing_weight_env_falls_back_to_random_in_both(case, tmp_path, monkeypatch):
+    """PMNET_TPU_WEIGHT naming a missing file: both packages fall back to
+    the same random parameters (and download nothing), also when
+    $PMNET_TPU_HOME holds a checkpoint."""
+    import shutil
+
+    from pharmaconet_tpu_torch.utils.download_weight import GDRIVE_URL, resolve_weight_path
+
+    monkeypatch.setenv("PMNET_TPU_WEIGHT", str(tmp_path / "absent.npz"))
+    monkeypatch.setenv("PMNET_TPU_HOME", str(tmp_path))
+    shutil.copy(case.tmp / "small.npz", tmp_path / "model.npz")
+    with pytest.raises(FileNotFoundError, match="PMNET_TPU_WEIGHT"):
+        resolve_weight_path(None)
+    net = PharmacoNet(weight_path=None, device="cpu", **KW)
+    jax_net = JaxPharmacoNet(weight_path=None, **KW)
+    want = state_dict_from_flax(jax.tree.map(np.asarray, jax_net.params),
+                                dict(image_size=GRID, **SMALL))
+    for k, v in net.model.state_dict().items():
+        assert torch.equal(v, want[k]), k
+    holder = SimpleNamespace(grid_dim=GRID, model=jax_build_model(GRID, **SMALL))
+    assert _jax_params_equal(jax_net, SimpleNamespace(params=JaxPharmacoNet._random_params(
+        holder, 0)))
+    monkeypatch.delenv("PMNET_TPU_WEIGHT")
+    (tmp_path / "model.npz").unlink()
+    with pytest.raises(RuntimeError, match=GDRIVE_URL.replace("?", r"\?")):
+        resolve_weight_path(None)
+    with pytest.raises(FileNotFoundError):
+        resolve_weight_path(tmp_path / "absent.tar")
 
 
 def test_run_extraction_matches_jax(case, port):

@@ -285,6 +285,18 @@ def test_probe_entry_point_cuda_without_card_raises():
         probe_fused_split.main(["--ligands", "4"])
 
 
+def test_probe_voxelize_needs_a_card(capsys):
+    """K6's split probe has nothing to split on the CPU: it exits 2 and
+    says so; its pocket is the modeling path's (the 4096 atom bucket)."""
+    from pharmaconet_tpu_torch.probes import probe_voxelize
+
+    assert probe_voxelize.main(["--device", "cpu"]) == 2
+    assert "needs a card" in capsys.readouterr().err
+    pos, feats, valid, center = probe_voxelize.pocket_atoms(torch.device("cpu"))
+    assert pos.shape == (4096, 3) and feats.shape == (4096, 33) and int(valid.sum()) == 3005
+    assert center.shape == (3,)
+
+
 # --------------------------------------------------------------------------
 # sass_compare: the parsers (the builds need the CUDA toolkit)
 # --------------------------------------------------------------------------
