@@ -52,6 +52,20 @@ Phases, in order; any failure exits non-zero:
                mode held against its plain version on the card (P1/P2 pass
                counts and P4 ohbf16's distances exactly equal), P3 full and
                every P4 mode against K1's output on the same tiles
+  9. smiles  — SMILES input, the distance-geometry embedder's torch backend
+               on the card (no Pallas kernel on its path; K1 screens its
+               output): C1, 64 fragment SMILES embedded and scored through
+               K1 against GraphMatcher; C4, solo embeds bit-identical to the
+               batched one; embed_program on the card against the CPU on the
+               same draws (a full chunk and the drug-like panel) and one
+               refinement step's times; thin_qr against torch.linalg.qr;
+               then 2048 fragment SMILES x 8 conformers through prepack
+               --smiles --embed_backend torch and screening --smiles (K1,
+               launch counts reset just before and read just after, every
+               score against the reference engine on the prepacked
+               library), with the embedder's stages, steps, retry rounds
+               and rejected share, and the numpy backend's prepack of the
+               same file (one worker per core); one {"smiles": ...} line
 Then prints the {"kernels": [...]} line, the nvidia-smi name/power line, and
 last {"ok": true, "device": {...}}. A kernel's `ms` is one call between two
 CUDA events (host work included), `stream_ms` its time per call back to
@@ -971,6 +985,263 @@ def phase_probes(pm, ligands, dev, kernels: dict) -> None:
     kernels.update(entries)
 
 
+# --------------------------------------------------------------------------
+# Phase 9: SMILES input (the torch embedder on the card, K1 on the result)
+# --------------------------------------------------------------------------
+SMILES_N, SMILES_SEED, SMILES_CONFORMERS = 2048, 11, 8
+# drug-like panel of tests/test_embed.py:23-35 (sildenafil: 33 heavy atoms, bucket 40)
+EMBED_PANEL = {
+    "benzene": "c1ccccc1", "hexane": "CCCCCC", "aspirin": "CC(=O)Oc1ccccc1C(=O)O",
+    "caffeine": "Cn1cnc2c1c(=O)n(C)c(=O)n2C", "naphthalene": "c1ccc2ccccc2c1",
+    "atp-frag": "Nc1ncnc2c1ncn2C1OC(COP(=O)(O)O)C(O)C1O",
+    "sildenafil": "CCCc1nn(C)c2c1nc(nc2=O)-c1cc(ccc1OCC)S(=O)(=O)N1CCN(C)CC1",
+    "celecoxib": "Cc1ccc(cc1)-c1cc(nn1-c1ccc(cc1)S(N)(=O)=O)C(F)(F)F",
+}
+# the tolerances tests/test_torch_embed.py states for two runs of the
+# program on the same draws: distances after MDS alone, after the
+# refinement, the worst violation; a row whose 0.05 A stop moved by
+# rounding must have converged in both, within 0.25 A, on at most 1% of rows
+MDS_TOL, REFINED_TOL, WORST_TOL = 1e-4, 5e-3, 1e-3
+STOP_TOL, FLIP_TOL, FLIP_SHARE = 0.05, 0.25, 0.01
+
+
+def pdist(x: np.ndarray) -> np.ndarray:
+    return np.linalg.norm(x[:, :, None] - x[:, None, :], axis=-1)
+
+
+def rows_agree(name: str, xa, wa, xb, wb, iters: int) -> dict:
+    """Two runs of embed_program on the same draws, against the tolerances
+    above; raises outside them. Returns the largest differences."""
+    dd = np.abs(pdist(xa) - pdist(xb)).max(axis=(1, 2))
+    dw = np.abs(wa - wb)
+    if iters == 0:
+        if dd.max() > MDS_TOL:
+            raise AssertionError(f"{name}: MDS distances {dd.max()} A apart")
+        return dict(max_dist=float(dd.max()), moved=0)
+    moved = ~((dd <= REFINED_TOL) & (dw <= WORST_TOL))
+    if (not ((wa[moved] < STOP_TOL) & (wb[moved] < STOP_TOL)).all()
+            or (dd[moved] > FLIP_TOL).any() or moved.sum() > FLIP_SHARE * len(dd)):
+        raise AssertionError(f"{name}: {int(moved.sum())} of {len(dd)} rows apart "
+                             f"(distances {dd[moved]}, worst {wa[moved]} vs {wb[moved]})")
+    return dict(max_dist=float(dd[~moved].max()), max_worst=float(dw[~moved].max()),
+                moved=int(moved.sum()), moved_max_dist=float(dd[moved].max(initial=0.0)))
+
+
+def chunk_bounds(smiles: list[str]):
+    from pharmaconet_tpu_torch.chem import embed
+    from pharmaconet_tpu_torch.chem.smiles import parse_smiles
+
+    mols = [parse_smiles(s) for s in smiles]
+    nb = embed._bucket_n(max(m.num_atoms for m in mols))
+    padded = [embed._pad_bounds(*embed._bounds(m), nb) for m in mols]
+    return (torch.from_numpy(np.stack([p[0] for p in padded])),
+            torch.from_numpy(np.stack([p[1] for p in padded])),
+            torch.tensor([m.num_atoms for m in mols]), nb)
+
+
+def device_busy(fn) -> dict:
+    """Host wall ms of one synchronised call of `fn`, and the card's busy ms
+    in it: the sum of its kernels' durations in a torch.profiler trace of a
+    second call (one stream, so kernels do not overlap), their count, and
+    the card's idle share of the wall time. None where the trace shows no
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "Memcpy" not in e.name and "Memset" not in e.name]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 if kernels else None
+    return dict(wall_ms=wall, busy_ms=busy, kernels=len(kernels),
+                idle_share=None if busy is None else 1.0 - busy / wall)
+
+
+def embed_card_vs_cpu(dev) -> dict:
+    """embed_program on the card and on the CPU with the same draws: one
+    full chunk of the fragment library's bucket 20 (256 molecules x 8
+    conformers) and the drug-like panel, bucket by bucket. Returns, for the
+    full chunk, device_busy of 25 refinement steps (no host check) and of
+    the whole program (600 steps)."""
+    from pharmaconet_tpu_torch.chem import embed
+    from pharmaconet_tpu_torch.chem.fragments import enumerate_fragment_smiles
+    from pharmaconet_tpu_torch.chem.smiles import parse_smiles
+
+    def bucket(smi: str) -> int:
+        return embed._bucket_n(parse_smiles(smi).num_atoms)
+
+    frags = [s for _, s in enumerate_fragment_smiles(SMILES_N, seed=SMILES_SEED)]
+    cases = {"fragments bucket 20": [s for s in frags if bucket(s) == 20]
+             [: embed._CHUNK_ROWS // SMILES_CONFORMERS]}
+    for smi in EMBED_PANEL.values():
+        cases.setdefault(f"panel bucket {bucket(smi)}", []).append(smi)
+    split = None
+    for name, smiles in cases.items():
+        lo, up, nreal, nb = chunk_bounds(smiles)
+        u = embed.draw_uniform(list(range(len(smiles))), 0, SMILES_CONFORMERS, nb, "cpu")
+        args = [t.to(dev) for t in (lo, up, nreal, u)]
+        if split is None:  # the full chunk, first
+            x = torch.randn(len(smiles) * SMILES_CONFORMERS, nb, 3, device=dev)  # any start
+            lo_r, up_r = (t.repeat_interleave(SMILES_CONFORMERS, 0) for t in args[:2])
+            steps = 25
+            split = dict(rows=x.shape[0], nb=nb, steps=steps, refine=device_busy(
+                lambda: embed.refine(x, lo_r, up_r, iters=steps, check_every=1 << 30)),
+                program=device_busy(lambda: embed.embed_program(*args, SMILES_CONFORMERS)))
+            log(f"    card busy in {steps} refinement steps and in one program on "
+                f"{x.shape[0]} rows (NB {nb}): {split}")
+        for iters in (0, 600):
+            xc, wc = (t.numpy() for t in embed.embed_program(lo, up, nreal, u, SMILES_CONFORMERS,
+                                                             iters=iters))
+            xg, wg = (t.cpu().numpy() for t in embed.embed_program(*args, SMILES_CONFORMERS,
+                                                                   iters=iters))
+            diff = rows_agree(f"{name}, {iters} steps", xg, wg, xc, wc, iters)
+            log(f"    card vs CPU, {name} ({len(smiles)} molecules x {SMILES_CONFORMERS}, "
+                f"NB {nb}), {iters} steps: {diff}")
+    return split
+
+
+def phase_smiles(dev, kernels: dict, card: str) -> dict:
+    """C1: 64 fragment SMILES embedded on the card, scored through K1
+    against GraphMatcher. C4: solo embeds bit-identical to the batched one.
+    The card against the CPU on the same draws. Then 2048 fragment SMILES
+    through `prepack --smiles --embed_backend torch` and `screening
+    --smiles` (K1), every score against the reference engine on the
+    prepacked library; the stages, steps and retries of the embedder, and
+    the numpy backend's prepack of the same file on this host."""
+    import os
+
+    from pharmaconet_tpu_torch.chem import embed
+    from pharmaconet_tpu_torch.chem.fragments import enumerate_fragment_smiles
+    from pharmaconet_tpu_torch.cli import prepack, screening
+    from pharmaconet_tpu_torch.ops import screen_cuda
+    from pharmaconet_tpu_torch.probes.timing import time_ms
+    from pharmaconet_tpu_torch.scoring.batch_screen import BatchScreener, PackedModel
+    from pharmaconet_tpu_torch.scoring.graph_match import GraphMatcher
+    from pharmaconet_tpu_torch.scoring.library import load_library
+    from pharmaconet_tpu_torch.scoring.parse_pool import iter_embedded
+    from pharmaconet_tpu_torch.synthetic import make_synthetic_model
+
+    out, t_part = {}, time.perf_counter()
+
+    def part(name: str) -> None:  # host seconds of each part of the phase
+        nonlocal t_part
+        now = time.perf_counter()
+        out.setdefault("part_s", {})[name] = now - t_part
+        t_part = now
+
+    model = make_synthetic_model(num_clusters=20, seed=3)  # probes/chip_ci.py's model
+    entries = enumerate_fragment_smiles(64, seed=11)
+    ligs = list(iter_embedded(entries, seed=2025, backend="torch", device=dev))
+    if len(ligs) < 56:
+        raise AssertionError(f"C1: only {len(ligs)} of 64 SMILES embedded")
+    screen_cuda.reset_launch_counts()
+    got = BatchScreener(model, device=dev).score_ligands([lig for _, lig in ligs])
+    torch.cuda.synchronize()
+    k1 = screen_cuda.LAUNCHES["score_tiles_fused_rows"]
+    worst = check_scores("C1", dict(zip([n for n, _ in ligs], got)),
+                         {n: GraphMatcher(model, lig).run() for n, lig in ligs})
+    if k1 < 1:
+        raise AssertionError("C1: the screener never launched K1")
+    log(f"  C1: {len(ligs)} of 64 embedded on the card, K1 launches {k1}, "
+        f"max |score - GraphMatcher| {worst:.3g}")
+    part("C1")
+
+    entries = enumerate_fragment_smiles(16, seed=23)
+    batched = dict(iter_embedded(entries, seed=77, backend="torch", device=dev))
+    for k in (0, 7, 15):
+        name, smi = entries[k]
+        solo = dict(iter_embedded([(name, smi)], seed=77 + k, backend="torch", device=dev))
+        if (name in solo) != (name in batched) or (name in solo and not np.array_equal(
+                solo[name].graph.atom_positions, batched[name].graph.atom_positions)):
+            raise AssertionError(f"C4: {name}'s solo embed differs from the batched one")
+    log(f"  C4: solo = batched bit for bit for k = 0, 7, 15 ({len(batched)} of 16 embedded)")
+    part("C4")
+
+    out["card_busy"] = embed_card_vs_cpu(dev)
+    part("card_vs_cpu")
+
+    # torch.linalg.qr against the port's batched Householder QR, one
+    # subspace round's batch (2048 rows, NB 20, 3 columns)
+    a = torch.randn(embed._CHUNK_ROWS, 20, 3, device=dev,
+                    generator=torch.Generator(dev).manual_seed(0))
+    qr_ms = dict(thin_qr=time_ms(lambda: embed.thin_qr(a), 5),
+                 torch_linalg_qr=time_ms(lambda: torch.linalg.qr(a)[0], 5))
+    log(f"  QR of [2048, 20, 3] on {card}: {qr_ms}")
+    part("qr")
+
+    smi = WORK / "fragments.smi"
+    smi.write_text("".join(f"{s} {n}\n" for n, s in enumerate_fragment_smiles(SMILES_N,
+                                                                           seed=SMILES_SEED)))
+    embed.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = prepack.main(prepack.build_parser().parse_args([
+        "--smiles", str(smi), "-o", str(WORK / "fragments.npz"), "--embed_backend", "torch",
+        "--device", str(dev), "--num_conformers", str(SMILES_CONFORMERS)]))
+    wall = time.perf_counter() - t0
+    stats = {k: (dict(v) if isinstance(v, dict) else v) for k, v in embed.STATS.items()}
+    if rc != 0:
+        raise AssertionError(f"prepack --smiles exited {rc}")
+    packed, names = load_library(WORK / "fragments.npz")
+    d = stats["dispatches"]
+    out["prepack_torch"] = dict(
+        smiles=SMILES_N, conformers=SMILES_CONFORMERS, wall_s=wall, smiles_per_s=SMILES_N / wall,
+        embed_wall_s=stats["wall_s"], rest_s=wall - stats["wall_s"],
+        embedded=len(names), rejected_share=1 - len(names) / SMILES_N, chunks=stats["chunks"],
+        dispatches=d, rounds_per_chunk=stats["rounds"] / stats["chunks"],
+        steps_per_dispatch=stats["steps"] / d,
+        ms_per_dispatch={k: v / d for k, v in stats["ms"].items()},
+        ms_per_step=stats["ms"]["refine"] / max(1, stats["steps"]))
+    log(f"  prepack --smiles --embed_backend torch: {out['prepack_torch']}")
+    part("prepack_torch")
+
+    pm = PackedModel.from_model(model)
+    model.save(str(WORK / "smiles_model.pm"))
+    ref = dict(zip(names, BatchScreener(pm, engine="reference", device=dev).score_packed(packed)))
+    screen_cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = screening.main(screening.build_parser().parse_args([
+        "-p", str(WORK / "smiles_model.pm"), "--smiles", str(smi), "-o", str(WORK / "smiles.csv"),
+        "--device", str(dev), "--batch_size", str(N_BATCH)]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in screen_cuda.LAUNCHES.items() if v}
+    if rc != 0:
+        raise AssertionError(f"screening --smiles exited {rc}")
+    worst = check_scores("screening --smiles", read_csv(WORK / "smiles.csv"), ref)
+    if counts.get("score_tiles_fused_rows", 0) < 1:
+        raise AssertionError("screening --smiles never launched K1")
+    kernels["score_tiles_fused_rows"]["launches_smiles"] = counts["score_tiles_fused_rows"]
+    out["screen_smiles"] = dict(wall_s=wall, smiles_per_s=SMILES_N / wall, launches=counts,
+                                max_abs_diff_reference=worst)
+    log(f"  screening --smiles: {out['screen_smiles']}")
+    part("screen_smiles")
+
+    cpus = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    rc = prepack.main(prepack.build_parser().parse_args([
+        "--smiles", str(smi), "-o", str(WORK / "fragments_numpy.npz"), "--embed_backend", "numpy",
+        "--cpus", str(cpus), "--device", str(dev), "--num_conformers", str(SMILES_CONFORMERS)]))
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"prepack --smiles --embed_backend numpy exited {rc}")
+    _, np_names = load_library(WORK / "fragments_numpy.npz")
+    out["prepack_numpy"] = dict(cpus=cpus, wall_s=wall, smiles_per_s=SMILES_N / wall,
+                                embedded=len(np_names))
+    log(f"  prepack --smiles --embed_backend numpy --cpus {cpus}: {out['prepack_numpy']}")
+    part("prepack_numpy")
+    log(f"  phase parts (host s): {out['part_s']}")
+    out.update(qr_ms=qr_ms, card=card)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1004,6 +1275,8 @@ def main() -> int:
         phase_modeling(dev, kernels, smi)
         log("[8] probe kernels P1-P4 (headline batch)")
         phase_probes(pm, make_synthetic_ligands(N_BATCH, num_conformers=4, seed=1), dev, kernels)
+        log("[9] SMILES input: the torch embedder on the card, K1 on its output")
+        print(json.dumps({"smiles": phase_smiles(dev, kernels, smi)}), flush=True)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

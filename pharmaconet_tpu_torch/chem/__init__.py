@@ -1,7 +1,10 @@
 """Host chemistry layer: dependency-free PDB/SDF/MOL2 parsing and perception.
 
 This is the input pipeline, not the compute path: it runs on the host CPU
-and feeds fixed-shape arrays to the programs on the card.
+and feeds fixed-shape arrays to the programs on the card. SMILES parsing
+(`smiles`), fragment libraries (`fragments`) and conformer embedding
+(`embed`, whose torch backend runs on the card) are imported from their
+modules, as in `pharmaconet_tpu`.
 """
 
 from .ligand_perception import PharmacophoreNode, get_pharmacophore_nodes

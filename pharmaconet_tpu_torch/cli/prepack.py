@@ -3,8 +3,9 @@
 Two levels of prepacking, in the formats `pharmaconet_tpu` writes:
 
 1. Model-independent packed library (.npz): parse + perceive every
-   .sdf/.mol2 under a directory once; screening then starts at the device
-   phase.
+   .sdf/.mol2 under a directory once, or embed every line of a SMILES
+   file (--smiles; the torch embedder runs on --device); screening then
+   starts at the device phase.
 2. Model-specific tile store (--tiles_out, needs -p): additionally pack
    the library for one pharmacophore model and store the final device
    arrays + host-tail metadata on disk (scoring/tiled_store.py).
@@ -12,6 +13,8 @@ Two levels of prepacking, in the formats `pharmaconet_tpu` writes:
    stores (the default) bake the assignment-tree leaves, on --device.
 
   python -m pharmaconet_tpu_torch.cli.prepack -d ligands/ -o lib.npz
+  python -m pharmaconet_tpu_torch.cli.prepack --smiles lib.smi -o lib.npz \\
+      --embed_backend torch --device cuda
   python -m pharmaconet_tpu_torch.cli.prepack --library lib.npz -p model.pm \\
       --tiles_out tiles/ --device cuda
 """
@@ -33,13 +36,28 @@ def build_parser() -> argparse.ArgumentParser:
                         help="existing packed library (.npz) to start from "
                              "(instead of -d)")
     parser.add_argument("--smiles", type=str,
-                        help="SMILES library file (not yet ported)")
+                        help="SMILES library file ('SMILES [name]' per "
+                             "line); conformers are embedded in-house "
+                             "(instead of -d)")
     parser.add_argument("-o", "--out", type=str,
                         help="output packed library (.npz)")
     parser.add_argument("--num_conformers", type=int, default=None,
-                        help="cap conformers per ligand")
+                        help="cap conformers per ligand (files) / conformers "
+                             "to embed per SMILES (default 8)")
     parser.add_argument("--cpus", type=int, default=1,
                         help="worker processes for parsing")
+    parser.add_argument("--seed", type=int, default=2025,
+                        help="base conformer-embedding seed for --smiles; "
+                        "entry i embeds with seed+i, so chunked runs stay "
+                        "bit-identical to one big run when each chunk "
+                        "passes seed+chunk_start")
+    parser.add_argument("--embed_backend", type=str, default="auto",
+                        choices=("auto", "numpy", "torch"),
+                        help="--smiles conformer embedding: 'torch' runs the "
+                             "whole distance-geometry pipeline on --device "
+                             "(one program per chunk), 'numpy' stays on the "
+                             "host (multiprocess-friendly); auto = torch when "
+                             "--device is cuda and --cpus 1")
 
     tiles = parser.add_argument_group("tile store (model-specific)")
     tiles.add_argument("--tiles_out", type=str,
@@ -61,8 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
                             "group tables (K2), 2 = row-expanded Gaussian "
                             "tables + stored distances (K3)")
     tiles.add_argument("--device", type=str, default="cuda",
-                       help="torch device of the v3 leaf bake (cuda, cuda:N, "
-                            "or cpu)")
+                       help="torch device of the v3 leaf bake and of the "
+                            "torch embedder (cuda, cuda:N, or cpu)")
 
     param = parser.add_argument_group("screening weights (baked into tiles)")
     param.add_argument("--hydrophobic", type=float, default=1.0)
@@ -76,11 +94,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(args) -> int:
-    if args.smiles:
-        print("--smiles is not yet ported to pharmaconet_tpu_torch", file=sys.stderr)
-        return 2
     from pharmaconet_tpu_torch.scoring.library import (
         build_library_from_files,
+        build_library_from_smiles,
         load_library,
         save_library,
     )
@@ -88,6 +104,13 @@ def main(args) -> int:
     if args.library:
         packed, names = load_library(args.library)
         print(f"loaded {len(packed)} prepacked ligands from {args.library}")
+    elif args.smiles:
+        packed, names = build_library_from_smiles(
+            args.smiles, num_conformers=args.num_conformers or 8,
+            cpus=args.cpus, embed_backend=args.embed_backend,
+            seed=args.seed, device=args.device,
+        )
+        print(f"embedded + packed {len(packed)} SMILES from {args.smiles}")
     elif args.library_dir:
         library = Path(args.library_dir)
         files = sorted(library.rglob("*.sdf")) + sorted(library.rglob("*.mol2"))
@@ -96,7 +119,7 @@ def main(args) -> int:
             files, args.num_conformers, cpus=args.cpus
         )
     else:
-        print("provide -d/--library_dir or --library", file=sys.stderr)
+        print("provide -d/--library_dir, --library or --smiles", file=sys.stderr)
         return 2
     if not (args.out or args.tiles_out):
         print("nothing to do: provide -o and/or --tiles_out", file=sys.stderr)

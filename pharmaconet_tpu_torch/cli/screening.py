@@ -3,15 +3,19 @@
 Flags, library discovery and CSV output follow `pharmaconet_tpu`'s
 screening CLI. Ligands come from a directory of .sdf/.mol2 files (-d),
 parsed and packed on the host, from a prepacked .npz library (--library),
-whose batches stream through the overlapped executor, or from a
-model-specific tile store (--library_tiles, written by `prepack
---tiles_out`), whose batches go straight to the kernels. Scoring runs on
---device (default cuda; asking for cuda without a visible card is an
-error, never a quiet move to the CPU).
+whose batches stream through the overlapped executor, from a SMILES file
+(--smiles: conformers embedded in-house, on --device with --cpus 1, then
+packed in memory and screened as --library is), or from a model-specific
+tile store (--library_tiles, written by `prepack --tiles_out`), whose
+batches go straight to the kernels. Scoring runs on --device (default
+cuda; asking for cuda without a visible card is an error, never a quiet
+move to the CPU).
 
   python -m pharmaconet_tpu_torch.cli.screening -p model.pm --library lib.npz \\
       -o out.csv --device cuda
   python -m pharmaconet_tpu_torch.cli.screening -p model.pm --library_tiles tiles/ \\
+      -o out.csv --device cuda
+  python -m pharmaconet_tpu_torch.cli.screening -p model.pm --smiles lib.smi \\
       -o out.csv --device cuda
 """
 
@@ -38,7 +42,12 @@ def build_parser() -> argparse.ArgumentParser:
                      help="model-specific tile store directory (prepack "
                           "--tiles_out; skips the host pack)")
     cfg.add_argument("--smiles", type=str,
-                     help="SMILES library file (not yet ported)")
+                     help="SMILES library file ('SMILES [name]' per line); "
+                          "conformers embedded in-house, on --device when "
+                          "--cpus is 1 (prefer prepack --smiles for "
+                          "repeated screens)")
+    cfg.add_argument("--num_conformers", type=int, default=8,
+                     help="conformers to embed per SMILES (--smiles only)")
     cfg.add_argument("-o", "--out", type=str, required=True, help="result CSV path")
     cfg.add_argument("--batch_size", type=int, default=1024, help="ligands per device batch")
     cfg.add_argument("--cpus", type=int, default=1,
@@ -124,10 +133,6 @@ def screen_tiles(screener, store_path: str, out: str) -> list[tuple[str, float]]
 
 
 def main(args) -> int:
-    if args.smiles:
-        print("--smiles is not yet ported to pharmaconet_tpu_torch", file=sys.stderr)
-        return 2
-
     from pharmaconet_tpu_torch.pharmacophore.model import PharmacophoreModel
     from pharmaconet_tpu_torch.scoring.batch_screen import BatchScreener
     from pharmaconet_tpu_torch.scoring.ligand import Ligand
@@ -149,17 +154,29 @@ def main(args) -> int:
     results: list[tuple[str, float]] = []
     if args.library_tiles:
         results = screen_tiles(screener, args.library_tiles, args.out)
-    elif args.library:
+    elif args.library or args.smiles:
         # prepacked library: skip parsing/perception entirely; the executor
         # overlaps C++ packing (GIL-released worker threads) with device
         # dispatch + host postprocessing, preserving score order. Batch
         # results append to <out>.partial as they complete; rerunning the
-        # same command skips ligands already scored there.
+        # same command skips ligands already scored there. --smiles builds
+        # the same packed form in memory (embed + perceive once up front),
+        # then screens identically.
         from pharmaconet_tpu_torch.scoring.executor import ScreeningExecutor
-        from pharmaconet_tpu_torch.scoring.library import load_library
+        from pharmaconet_tpu_torch.scoring.library import (
+            build_library_from_smiles,
+            load_library,
+        )
 
-        packed, names = load_library(args.library)
-        print(f"loaded {len(packed)} prepacked ligands")
+        if args.library:
+            packed, names = load_library(args.library)
+            print(f"loaded {len(packed)} prepacked ligands")
+        else:
+            packed, names = build_library_from_smiles(
+                args.smiles, num_conformers=args.num_conformers, cpus=args.cpus,
+                device=args.device,
+            )
+            print(f"embedded + packed {len(packed)} SMILES")
 
         partial_path = Path(args.out + ".partial")
         done = load_partial(partial_path, names)
@@ -187,7 +204,8 @@ def main(args) -> int:
         partial_path.unlink()  # complete: the sorted CSV is the record
     else:
         if not args.library_dir:
-            print("provide -d/--library_dir or --library", file=sys.stderr)
+            print("provide -d/--library_dir, --library, --library_tiles or --smiles",
+                  file=sys.stderr)
             return 2
         from pharmaconet_tpu_torch.scoring.parse_pool import iter_parsed
 

@@ -314,7 +314,24 @@ class PharmacophoreModel:
         ligand = Ligand.load_from_file(ligand_file, num_conformers)
         return self._scoring(ligand, weights)
 
-    # scoring_smiles waits for the port of chem/embed.py and chem/smiles.py.
+    def scoring_smiles(
+        self,
+        ligand_smiles: str,
+        num_conformers: int,
+        weights: dict[str, float] | None = None,
+        conformer_engine: str = "auto",
+    ) -> float:
+        """Score a SMILES string (upstream pharmacophore_model.py:92-99).
+
+        conformer_engine: "rdkit" (upstream's ETKDG path), "dg"
+        (in-house distance geometry, no RDKit needed), or "auto".
+        """
+        from ..scoring.ligand import Ligand
+
+        ligand = Ligand.load_from_smiles(
+            ligand_smiles, num_conformers, engine=conformer_engine
+        )
+        return self._scoring(ligand, weights)
 
     def _scoring(self, ligand, weights: dict[str, float] | None = None) -> float:
         from ..scoring.graph_match import GraphMatcher

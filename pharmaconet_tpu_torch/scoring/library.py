@@ -134,5 +134,67 @@ def build_library_from_files(
     return packed, names
 
 
-# SMILES libraries (read_smiles_file, build_library_from_smiles) wait for
-# the port of chem/embed.py and chem/smiles.py.
+def read_smiles_file(path: str | Path) -> list[tuple[str, str]]:
+    """Read a .smi/.txt SMILES library: one 'SMILES [name]' per line.
+
+    Whitespace- or comma-separated; lines starting with '#' are comments
+    ('#' inside the first field is the SMILES triple bond, never a
+    comment); a missing name defaults to the 0-based position mol<idx>."""
+    entries: list[tuple[str, str]] = []
+    for raw in Path(path).read_text().splitlines():
+        line = raw.strip()
+        if not line or line.startswith("#"):
+            continue
+        fields = line.replace(",", " ").split()
+        smi = fields[0]
+        # anything from a '#'-led token onward is a trailing comment
+        name = None
+        for tok in fields[1:]:
+            if tok.startswith("#"):
+                break
+            name = tok
+            break
+        entries.append((name or f"mol{len(entries)}", smi))
+    return entries
+
+
+def build_library_from_smiles(
+    path: str | Path,
+    num_conformers: int = 8,
+    cpus: int = 1,
+    seed: int = 2025,
+    embed_backend: str = "auto",
+    device: str = "cuda",
+) -> tuple[list[PackedLigand], list[str]]:
+    """Parse + embed + perceive + pack a SMILES library (skips failures).
+
+    Upstream's scoring_smiles embeds one molecule per call with RDKit
+    (pharmacophore_model.py:92-99); here a whole .smi file prepacks
+    through chem/embed.py (see cli/prepack.py for the persisted form that
+    composes with tile stores and resume).
+
+    embed_backend "auto" embeds with the torch backend on `device` when
+    that is a CUDA device and no worker pool was requested (cpus <= 1), and
+    with numpy otherwise; "numpy"/"torch" force one. Unless the backend is
+    "numpy", `device` cuda without a card raises."""
+    from ..device import resolve_device
+    from .parse_pool import iter_embedded
+
+    if embed_backend != "numpy":
+        device = resolve_device(device)
+    if embed_backend == "auto":
+        embed_backend = "torch" if cpus <= 1 and device.type == "cuda" else "numpy"
+
+    entries = read_smiles_file(path)
+    packed: list[PackedLigand] = []
+    names: list[str] = []
+    for name, ligand in iter_embedded(
+        entries, cpus=cpus, num_conformers=num_conformers, seed=seed,
+        backend=embed_backend, device=device,
+    ):
+        try:
+            packed.append(PackedLigand.from_ligand(ligand))
+        except Exception:  # noqa: BLE001 - tolerant library building
+            continue
+        names.append(name)
+    return packed, names

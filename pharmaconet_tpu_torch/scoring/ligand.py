@@ -78,8 +78,68 @@ class Ligand:
             positions.append(m.coords)
         return cls(base, positions)
 
-    # SMILES constructors (load_from_smiles, from_smiles_dg) wait for the
-    # port of chem/embed.py and chem/smiles.py.
+    @classmethod
+    def load_from_smiles(
+        cls, smiles: str, num_conformers: int, engine: str = "auto"
+    ) -> "Ligand":
+        """Embed conformers from SMILES (upstream ligand.py:87-107).
+
+        engine:
+          * "rdkit" — RDKit srETKDGv3, exactly upstream's path
+            (raises ImportError if RDKit is absent);
+          * "dg" — the in-house distance-geometry embedder
+            (chem/embed.py; no external dependency);
+          * "auto" — RDKit when importable, otherwise "dg".
+        """
+        if engine not in ("auto", "rdkit", "dg"):
+            raise ValueError(f"unknown conformer engine {engine!r}")
+        if engine != "dg":
+            try:
+                return cls._load_from_smiles_rdkit(smiles, num_conformers)
+            except ImportError:
+                if engine == "rdkit":
+                    raise
+        return cls.from_smiles_dg(smiles, num_conformers)
+
+    @classmethod
+    def from_smiles_dg(
+        cls, smiles: str, num_conformers: int, seed: int = 2025
+    ) -> "Ligand":
+        """In-house distance-geometry path (chem/embed.py), no RDKit.
+
+        Strips explicit [H] atoms BEFORE embedding: the embedder only
+        places heavy atoms, so the coords must be assigned to the
+        stripped molecule or the conformer array misaligns."""
+        from ..chem.embed import embed_conformers
+        from ..chem.smiles import parse_smiles
+
+        mol = parse_smiles(smiles)
+        if any(a.atomic_num == 1 for a in mol.atoms):
+            mol = mol.strip_hydrogens()
+        confs = embed_conformers(mol, num_conformers, seed=seed)  # [C, N, 3]
+        mol.coords = confs[0]
+        return cls(mol, confs, conformer_axis=0)
+
+    @classmethod
+    def _load_from_smiles_rdkit(cls, smiles: str, num_conformers: int) -> "Ligand":
+        from rdkit import Chem
+        from rdkit.Chem import rdDistGeom
+
+        import tempfile, os  # noqa: E401
+
+        rdmol = Chem.MolFromSmiles(smiles)
+        rdmol = Chem.AddHs(rdmol)
+        rdDistGeom.EmbedMultipleConfs(rdmol, num_conformers, params=rdDistGeom.srETKDGv3())
+        fd, fn = tempfile.mkstemp(suffix=".sdf")
+        os.close(fd)
+        try:
+            with Chem.SDWriter(fn) as w:
+                for i in range(rdmol.GetNumConformers()):
+                    w.write(rdmol, confId=i)
+            out = cls.load_from_file(fn)
+        finally:
+            os.unlink(fn)
+        return out
 
 
 class LigandNode:

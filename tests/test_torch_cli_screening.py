@@ -111,10 +111,17 @@ def test_library_from_files_equals_jax_prepack(inputs, tmp_path):
 
 
 def test_unported_routes_exit_nonzero(inputs, tmp_path, capsys):
-    rc = t_cli.main(_port_args("-p", str(inputs / "model.pm"), "--smiles", "x",
-                               "-o", str(tmp_path / "o.csv")))
+    """--smiles, the last route that exited 2 as unported, now screens
+    (tests/test_torch_smiles_library.py holds it to the JAX CLI); a call
+    with no library source still exits non-zero with the usage line."""
+    (tmp_path / "lib.smi").write_text("CCO ethanol\nc1ccccc1O phenol\n")
+    assert t_cli.main(_port_args("-p", str(inputs / "model.pm"), "--smiles",
+                                 str(tmp_path / "lib.smi"), "-o", str(tmp_path / "s.csv"))) == 0
+    assert {n for n, _ in _read_csv(tmp_path / "s.csv")} == {"ethanol", "phenol"}
+    rc = t_cli.main(_port_args("-p", str(inputs / "model.pm"), "-o", str(tmp_path / "o.csv")))
     assert rc != 0
-    assert "not yet ported" in capsys.readouterr().err
+    assert "provide -d/--library_dir" in capsys.readouterr().err
+    assert not (tmp_path / "o.csv").exists()
 
 
 def test_cuda_without_card_is_an_error(inputs, tmp_path):

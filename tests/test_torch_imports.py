@@ -81,6 +81,10 @@ def test_every_module_imports_without_jax_and_builds_nothing():
         "prep", "timing", "probe_pallas_screen", "probe_fused_split", "probe_kernel_r3",
         "sass_compare")}
     assert probes <= names, probes - names
+    smiles = {f"pharmaconet_tpu_torch.{m}" for m in (
+        "chem.smiles", "chem.fragments", "chem.embed", "scoring.parse_pool", "scoring.library",
+        "scoring.ligand", "pharmacophore.model")}
+    assert smiles <= names, smiles - names
 
 
 def test_cuda_without_card_raises():

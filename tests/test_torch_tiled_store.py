@@ -271,8 +271,11 @@ def test_cli_prepack_and_library_tiles(corpus, tmp_path, version):
 
 def test_cli_prepack_refusals(corpus, tmp_path, capsys):
     parse = t_prepack.build_parser().parse_args
-    assert t_prepack.main(parse(["--smiles", "x.smi", "-o", str(tmp_path / "o.npz")])) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    # --smiles is ported (tests/test_torch_smiles_library.py); with nothing
+    # to write it is refused like every other source
+    (tmp_path / "x.smi").write_text("CCO ethanol\n")
+    assert t_prepack.main(parse(["--smiles", str(tmp_path / "x.smi"), "--device", "cpu"])) == 2
+    assert "nothing to do" in capsys.readouterr().err
     assert t_prepack.main(parse(["--library", str(corpus["root"] / "lib.npz"),
                                  "--tiles_out", str(tmp_path / "t")])) == 2
     assert "-p/--pharmacophore_model" in capsys.readouterr().err
