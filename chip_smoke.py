@@ -51,7 +51,12 @@ Phases, in order; any failure exits non-zero:
                on inputs from the probe modules' own prep, every kernel and
                mode held against its plain version on the card (P1/P2 pass
                counts and P4 ohbf16's distances exactly equal), P3 full and
-               every P4 mode against K1's output on the same tiles
+               every P4 mode against K1's output on the same tiles (P4's
+               bit for bit); P4 ohbf16 (K1 with the selection on wgmma)
+               also bit for bit against its first design
+               (score_tiles_ohbf16_baseline, mma.sync in K1's first
+               design), rows and distances, timed beside it, with both
+               designs' registers and spill bytes at every C
   9. smiles  — SMILES input, the distance-geometry embedder's torch backend
                on the card (no Pallas kernel on its path; K1 screens its
                output): C1, 64 fragment SMILES embedded and scored through
@@ -70,8 +75,8 @@ Then prints the {"kernels": [...]} line, the nvidia-smi name/power line, and
 last {"ok": true, "device": {...}}. A kernel's `ms` is one call between two
 CUDA events (host work included), `stream_ms` its time per call back to
 back with no wait for the host (`stream_gapless`), and `enqueue_ms` the
-host's time to enqueue one (probes/timing.py). K1's, K2's and K6's entries
-add their first designs' `baseline_ms` and `baseline_stream_ms` (same
+host's time to enqueue one (probes/timing.py). K1's, K2's, K6's and P4
+ohbf16's entries add their first designs' `baseline_ms` and `baseline_stream_ms` (same
 timers, same rounds), `bit_equal_to_baseline`, and `occupancy` /
 `baseline_occupancy`: registers and local bytes per thread, shared memory
 per block and blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor;
@@ -892,9 +897,10 @@ def probe_row_entries(pm, ligands, cuda, times: dict) -> dict:
 
 def probe_tile_entries(pm, ligands, cuda, times: dict) -> dict:
     """P3's ablations and P4's variants on K1's tiles: each against its
-    plain version, P3 full and every P4 mode against K1's output, P4
-    ohbf16's distances against the prepack-time distances; their times
-    from the probes' runs."""
+    plain version, P3 full against K1's output and every P4 mode bit for
+    bit; P4 ohbf16 bit for bit against its first design (rows, and
+    distances, which must also be the prepack-time distances), timed
+    beside it; the other times from the probes' runs."""
     from pharmaconet_tpu_torch.ops import screen_cuda, screen_ref
     from pharmaconet_tpu_torch.probes import prep
     from pharmaconet_tpu_torch.scoring.screen_tiles import tile_distances
@@ -923,6 +929,7 @@ def probe_tile_entries(pm, ligands, cuda, times: dict) -> dict:
             err, _ = compare(f"{name} vs K1", got, k1)
             log(f"    full vs K1: max abs err {err:.3g}, bit-equal {torch.equal(got, k1)}")
     k1_ops = f32_ops(c, rows, entries, True, d)
+    first = lambda: screen_cuda.score_tiles_ohbf16_baseline(*x, *d)  # noqa: E731
     for mode in screen_ref.VARIANTS:
         name = f"score_tiles_fused_variant[{mode}]"
         fn = lambda m=mode: screen_cuda.score_tiles_fused_variant(*x, *d, m)  # noqa: E731
@@ -930,15 +937,30 @@ def probe_tile_entries(pm, ligands, cuda, times: dict) -> dict:
         out[name] = kernel_entry(
             name, "probes/probe_kernel_r3.py:137", fn,
             lambda m=mode: screen_ref.score_tiles_fused_variant(*x, *d, m), x, got, k1_ops,
-            tiles, times=times[name])
-        err, _ = compare(f"{name} vs K1", got, k1)
-        log(f"    {mode} vs K1: max abs err {err:.3g}, bit-equal {torch.equal(got, k1)}")
+            tiles, times=times[name],
+            baseline=(first, ("score_tiles_ohbf16_baseline", dict(c=c))) if mode == "ohbf16"
+            else None)
+        if not torch.equal(got, k1):
+            raise AssertionError(f"{name}: {int((got != k1).sum())} values differ from K1's")
+        log(f"    {mode}: bit-equal to K1")
     _, dist = screen_cuda.score_tiles_fused_variant(*x, *d, "ohbf16", return_distances=True)
+    _, first_dist = screen_cuda.score_tiles_ohbf16_baseline(*x, *d, return_distances=True)
+    if not torch.equal(dist, first_dist):
+        raise AssertionError(f"ohbf16: {int((dist != first_dist).sum())} distances differ "
+                             "from its first design's")
     want = tile_distances(ti.pos_blocks, ti.uv, native=False)
     differ = int((dist.cpu().numpy() != want).sum())
     if differ:
         raise AssertionError(f"ohbf16: {differ} distances differ from the prepack-time ones")
-    log(f"    ohbf16 distances: all {want.size} bit-equal to the prepack-time distances")
+    log(f"    ohbf16 distances: all {want.size} bit-equal to its first design's and to the "
+        "prepack-time distances")
+    entry = out["score_tiles_fused_variant[ohbf16]"]
+    for key, design in (("occupancy_by_conformers", "score_tiles_fused_variant[ohbf16]"),
+                        ("baseline_occupancy_by_conformers", "score_tiles_ohbf16_baseline")):
+        entry[key] = {n: screen_cuda.kernel_resources(design, n)
+                      for n in range(1, screen_cuda.MAX_CONFORMERS + 1)}
+        log(f"    {design} registers / local bytes by C: " + ", ".join(
+            f"{n}: {r['registers']}/{r['local_bytes']}" for n, r in entry[key].items()))
     return out
 
 

@@ -28,13 +28,17 @@
 //                               NOEXP, NOHOT; all three = gauss0)
 //   P4 screen_tiles_fused_variant  <- probe_kernel_r3.py make_kernel: K1's
 //                               function in design variants. `full` and
-//                               `b4d` launch K1's first design: b4d
+//                               `b4d` launch K1 (fused_stream_kernel): b4d
 //                               removed the TPU's [P*C, TILE] broadcast
 //                               copies, and a thread per row holds its P
 //                               entries in registers and builds no
-//                               broadcast, so that design already is b4d.
-//                               `ohbf16` (FUSED_MMA) selects the node
-//                               positions on the tensor cores (below).
+//                               broadcast, so K1 already is b4d.
+//                               `ohbf16` (fused_stream_mma_kernel<C>) is
+//                               K1 with the node positions selected on the
+//                               tensor cores by wgmma (below); its first
+//                               design (FUSED_MMA, mma.sync inside K1's
+//                               first design) stays behind
+//                               screen_tiles_ohbf16_baseline.
 //
 // K3, K4, K5 and P1-P4 are one template
 // (screen_tile_kernel<C, MODE, FLAGS>) over pointer strides; K3-K5 are
@@ -55,8 +59,8 @@
 //      where fails > threshold on a non-self pair.
 // Its FUSED, FLAGS = 0 instance is K1's first design: the tile's node table
 // loaded and waited for at a block-wide barrier, then two block-wide scans
-// with two barriers per step. P3 `full` and P4 `full`/`b4d` launch it, and
-// K1 is held to it bit for bit. K2's first design, v3_tile_kernel<C> (the
+// with two barriers per step. P3 `full` launches it, and K1 is held to it
+// bit for bit. K2's first design, v3_tile_kernel<C> (the
 // same arithmetic on the v3 layout: one row per ligand-node-pair block, the
 // mn_cap model-node-pair entries inside the row, each row reading its
 // group's (μ, 1/std, w2, mnhalf) from the tile's [g_cap, r_pad] group table
@@ -64,20 +68,31 @@
 // scan of [score; block_fail]), stays behind screen_tiles_v3_baseline for
 // the same comparison.
 //
-// P4 `ohbf16` (FUSED_MMA) does the selection of step 1 as the TPU did, on
-// the tensor cores: each f32 node position splits exactly into three bf16
-// parts (hi, mid, lo, truncating: x = (hi + mid) + lo with no rounding),
-// once per tile into shared memory; an unsigned one-hot [rows, 64] of u
-// (then of v) times each part [64, 3C] is one mma.sync m16n8k16 bf16 ->
-// f32 chain per warp, whose only nonzero product is part * 1, so every
-// selection is exact; the three parts are summed in f32 (exact) and staged
-// per warp in shared memory, and the row's thread then forms
-// dx = pos_u - pos_v with __fsub_rn in K1's order. The distances are
-// bit-equal to K1's. (The TPU probe's signed one-hot sums six terms inside
-// the MMA, whose rounding is not K1's.) Per warp that is 96 MMAs at C = 4,
-// their operand loads and the staging, where K1 does six indexed
-// shared-memory loads per conformer and row: the probe measures what that
-// costs.
+// P4 `ohbf16` does the selection of step 1 as the TPU did, on the tensor
+// cores: each f32 node position splits exactly into three bf16 parts (hi,
+// mid, lo, truncating: x = (hi + mid) + lo with no rounding wherever
+// |x| >= 2^-110 or x = ±0, -0 coming back +0; below 2^-110 the lowest part
+// can fall under bf16's subnormals), once per tile into shared memory; an
+// unsigned one-hot
+// [rows, 64] of u (then of v) times the parts [64, 3C] on the tensor cores
+// has one nonzero product, part * 1, per column, so every selection is
+// exact; the three parts are summed in f32 (exact), and dx = pos_u - pos_v
+// is formed with __fsub_rn in K1's order. The distances are bit-equal to
+// K1's. (The TPU probe's signed one-hot sums six terms inside the MMA,
+// whose rounding is not K1's.)
+//   - The first design (FUSED_MMA in screen_tile_kernel, inside K1's first
+//     design): per warp and 16-row half, one mma.sync m16n8k16 chain per
+//     side and part (96 MMAs per warp at C = 4, the one-hot rebuilt for
+//     every part, two conflicted 32-bit B loads per MMA), each part's
+//     positions read-modify-written in a [2, TILE, 3C] stage.
+//   - The second (fused_stream_mma_kernel): K1's streaming kernel with only
+//     the selection replaced. The block splits each landed node table once
+//     into a swizzled K-major B operand (double-buffered like K1's tables);
+//     each warpgroup runs wgmma m64nNk16 with the one-hot A from registers,
+//     each warp its own 16 rows of the 64-row M-tile, so the products land
+//     in the warp that owns the rows: per side, half and part one chain of
+//     4 k steps (48 wgmma per 128 rows), and 3C differences per row staged
+//     in the warp's own scan rows.
 //
 // Bound on this card: bytes. Per tile K1 streams ~147 KiB (gtab 96 KiB,
 // aux 28 KiB, uv 4 KiB, the node table and the output), K3 ~160 KiB (dt
@@ -924,6 +939,368 @@ __global__ void __launch_bounds__(TILE, 1) v3_stream_kernel(V3StreamArgs a) {
     }
 }
 
+// --- P4 ohbf16's second design: K1 with the selection on wgmma --------------
+
+// The selection's shapes at C conformers: each bf16 part of a node table is
+// [NPAD, CAP], its 3C coordinate columns padded to a multiple of 8, K-major
+// (one column = CAP bf16 = 128 bytes along k); the three parts stand one
+// after another, ROWS columns in all. A wgmma chain takes one part (N =
+// NPAD): three parts side by side in one chain (N = 48 at C = 4) left
+// ptxas unable to allocate within the 64 registers a 1024-thread block
+// allows.
+template <int C>
+struct MmaShape {
+    static constexpr int K3 = 3 * C;
+    static constexpr int NPAD = (K3 + 7) / 8 * 8;
+    static constexpr int NT = NPAD / 8;  // n8 tiles of one part
+    static constexpr int ROWS = 3 * NPAD;
+};
+
+// x's exact three-way bf16 split (split_bf16's arithmetic), as bits.
+__device__ __forceinline__ void split3_bf16(float x, uint32_t (&p)[3]) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        const __nv_bfloat16 b = __float2bfloat16_rz(x);
+        p[k] = __bfloat16_as_ushort(b);
+        x = __fsub_rn(x, __bfloat162float(b));
+    }
+}
+
+// Byte offset of bf16 (column n, slot k) of a K-major operand with the
+// 128-byte swizzle: 128 bytes per column, the 16-byte chunk k / 8 XORed
+// with n % 8 (the address bits [4, 7) with [7, 10) of a 1024-byte aligned
+// base, as the wgmma descriptor's layout type 1 reads them).
+__device__ __forceinline__ int sw128_offset(int n, int k) {
+    return n * 128 + ((((k >> 3) ^ n) & 7) << 4) + (k & 7) * 2;
+}
+
+// The wgmma descriptor of that operand at `p` (1024-byte aligned): start
+// address >> 4, LBO 1 (unused by a swizzled K-major operand), SBO 1024
+// bytes between 8-column groups, layout type 1 (128-byte swizzle). A k step
+// of 16 bf16 adds 32 bytes (2) to the start address.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+    return (uint64_t)((smem_u32(p) >> 4) & 0x3FFF) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from reading the accumulators before the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&x)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+// d += A · B: one wgmma m64nNk16, A the warpgroup's [64, 16] bf16 one-hot
+// from registers (each warp its 16 rows, mma.sync's A fragment), B the
+// [16, N] operand of `desc`, d the f32 accumulator (mma.sync's C fragment
+// per n8 tile). scale-d is always 1: the chains zero d first. (With d left
+// uninitialised and scale-d 0 on a chain's first step, the H100 returned
+// the previous chain's results in d: the other side's positions.)
+template <int N>
+struct WgmmaBf16;
+
+template <>
+struct WgmmaBf16<8> {
+    static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3}, "
+            "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+            : "memory");
+    }
+};
+
+template <>
+struct WgmmaBf16<16> {
+    static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+            "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+            : "memory");
+    }
+};
+
+template <>
+struct WgmmaBf16<24> {
+    static __device__ __forceinline__ void run(float (&d)[12], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7,"
+            " %8, %9, %10, %11}, "
+            "{%12, %13, %14, %15}, %16, p, 1, 1, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+            : "memory");
+    }
+};
+
+// sqrt((dx²+dy²)+dz²), distance3's arithmetic on differences already formed.
+__device__ __forceinline__ float norm3(float dx, float dy, float dz) {
+    return __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                __fmul_rn(dz, dz)));
+}
+
+// Where the warp stages difference (row rho of a 16-row half, column col):
+// in the warp's own rows of a scan buffer (float `chunk` * TILE + lane,
+// 2C + 1 chunks of 32), column pairs per chunk, rotated by 8 lanes per
+// chunk so that the 32 lanes of an accumulator store hit 32 banks and the
+// 16 lanes that read a column hit 16.
+__device__ __forceinline__ int stage_slot(int rho, int col) {
+    const int chunk = col >> 1;
+    return chunk * TILE + ((((col & 1) << 4) + rho + 8 * (chunk & 3)) & 31);
+}
+
+// Conformer distances of the warp's 32 rows from the tile's three bf16
+// parts (`parts`, MmaShape's layout). Per 16-row half h (the warp's slice
+// of its warpgroup's 64-row M-tile), side (u, then w) and part: the
+// unsigned one-hot of the rows' slots (built in registers once per half,
+// side and k step, for all three parts) times the part over 4 k steps of
+// 16 slots; its only nonzero product is
+// part * 1, so every column is the part exactly (an 8-bit value no
+// accumulator rounds). The parts are summed (hi + mid) + lo with
+// __fadd_rn, which is x exactly; dx = pos_u - pos_w with __fsub_rn in the
+// accumulator layout; the half's 3C differences per row are staged in
+// `stage` (stage_slot) and the row's own thread forms sqrt((dx²+dy²)+dz²).
+// Every row's distances are K1's, bit for bit.
+template <int C>
+__device__ __forceinline__ void mma_select_distances(const uint16_t* parts, int32_t uvp,
+                                                     float* stage, int lane, float (&d)[C]) {
+    using S = MmaShape<C>;
+    constexpr int NT = S::NT;
+    const int g = lane >> 2, q = lane & 3;
+    const uint64_t desc = sw128_desc(parts);
+    const int node[2] = {uvp / CAP, uvp % CAP};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        float x[NT][4];  // side u's positions, then the differences
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+            const int ia = __shfl_sync(FULL_MASK, node[side], 16 * h + g);
+            const int ib = __shfl_sync(FULL_MASK, node[side], 16 * h + g + 8);
+            float pos[NT][4];
+            uint32_t a[CAP / 16][4];
+#pragma unroll
+            for (int ks = 0; ks < CAP / 16; ++ks) {
+                const int k = 16 * ks + 2 * q;
+                a[ks][0] = onehot_pair(ia, k);
+                a[ks][1] = onehot_pair(ib, k);
+                a[ks][2] = onehot_pair(ia, k + 8);
+                a[ks][3] = onehot_pair(ib, k + 8);
+            }
+#pragma unroll
+            for (int part = 0; part < 3; ++part) {
+                float acc[4 * NT];
+#pragma unroll
+                for (int i = 0; i < 4 * NT; ++i) acc[i] = 0.f;
+                wgmma_fence();
+#pragma unroll
+                for (int ks = 0; ks < CAP / 16; ++ks)
+                    WgmmaBf16<S::NPAD>::run(acc, a[ks], desc + part * S::NPAD * 8 + 2 * ks);
+                wgmma_commit_wait();
+                fence_regs(acc);
+                // acc[4 nt + e]: row g (+8 for e >= 2) of the half, column
+                // 8 nt + 2q + (e & 1)
+#pragma unroll
+                for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        pos[nt][e] = part == 0 ? acc[4 * nt + e] : __fadd_rn(pos[nt][e], acc[4 * nt + e]);
+                }
+            }
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    x[nt][e] = side == 0 ? pos[nt][e] : __fsub_rn(x[nt][e], pos[nt][e]);
+            }
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int col = 8 * nt + 2 * q + (e & 1);
+                if (col < S::K3) stage[stage_slot(g + 8 * (e >> 1), col)] = x[nt][e];
+            }
+        }
+        __syncwarp();
+        if ((lane >> 4) == h) {
+            const int rho = lane & 15;
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+                d[c] = norm3(stage[stage_slot(rho, 3 * c)], stage[stage_slot(rho, 3 * c + 1)],
+                             stage[stage_slot(rho, 3 * c + 2)]);
+        }
+        __syncwarp();  // read before the next half, or the warp's scan rows, overwrite them
+    }
+}
+
+// K1's arguments, and the optional [T, C, TILE] distances out.
+struct FusedStreamMmaArgs {
+    FusedStreamArgs k1;
+    float* dist;
+};
+
+// Its shared memory: K1's, with each stage's interleaved node table
+// replaced by the three bf16 parts (first, 1024-byte aligned for the
+// swizzle; a stage is a whole number of 1024-byte atoms).
+template <int C>
+struct FusedStreamMmaSmem {
+    static constexpr int NODE = 3 * C * CAP;
+    static constexpr int ROWV = 2 * C + 1;
+    uint16_t parts[2][MmaShape<C>::ROWS * CAP];
+    uint64_t bar[2];
+    int32_t uv[2][TILE];
+    float raw[2][NODE];
+    float scan1[ROWV * TILE];
+    float scan2[ROWV * TILE];
+};
+
+// The dynamic shared memory a block asks for: the layout plus the slack to
+// round its base up to 1024 bytes.
+template <int C>
+__host__ __device__ constexpr int fused_stream_mma_smem() {
+    return (int)sizeof(FusedStreamMmaSmem<C>) + 1024;
+}
+
+// P4 ohbf16, the second design: K1 (fused_stream_kernel) with the node
+// selection on wgmma (mma_select_distances). Where K1 interleaves a landed
+// node table, the block splits it into the three bf16 parts, written in
+// the swizzled layout the B descriptor reads and double-buffered like K1's
+// tables, then fences them into the async proxy before the barrier that
+// precedes their first wgmma. Each warp stages its differences in its own
+// rows of scan1: no other warp reads or writes them between the barrier
+// after tile j's first scan and the next tile's first barrier, and the
+// warp writes its next scan rows only after its selection has read them.
+template <int C>
+__global__ void __launch_bounds__(TILE, 1) fused_stream_mma_kernel(FusedStreamMmaArgs args) {
+    using Smem = FusedStreamMmaSmem<C>;
+    using S = MmaShape<C>;
+    constexpr int NODE = Smem::NODE;
+    const FusedStreamArgs& a = args.k1;
+    extern __shared__ __align__(16) unsigned char smem_bytes[];
+    Smem& sm = *reinterpret_cast<Smem*>(smem_bytes + ((1024u - (smem_u32(smem_bytes) & 1023u)) & 1023u));
+    const int r = threadIdx.x;
+    const int lane = r & 31;
+    const int grid = gridDim.x;
+    int t = blockIdx.x;
+    if (t >= a.tiles) return;
+
+    auto stage = [&](int tt, int s) {  // one thread: tile tt's tables -> stage s
+        mbar_expect(&sm.bar[s], (TILE + NODE) * 4);
+        bulk_copy(sm.uv[s], a.uv + (long long)tt * TILE, TILE * 4, &sm.bar[s]);
+        bulk_copy(sm.raw[s], a.pos + (long long)tt * NODE, NODE * 4, &sm.bar[s]);
+    };
+    auto split = [&](int s) {  // the block: raw [3C, CAP] -> parts[s], then the fence
+        unsigned char* dst = reinterpret_cast<unsigned char*>(sm.parts[s]);
+        for (int i = r; i < NODE / 2; i += TILE) {  // slots k, k + 1 of column n
+            const int n = i / (CAP / 2), k = 2 * (i % (CAP / 2));
+            const float2 x = reinterpret_cast<const float2*>(sm.raw[s])[i];
+            uint32_t p0[3], p1[3];
+            split3_bf16(x.x, p0);
+            split3_bf16(x.y, p1);
+#pragma unroll
+            for (int part = 0; part < 3; ++part)
+                *reinterpret_cast<uint32_t*>(dst + sw128_offset(part * S::NPAD + n, k)) =
+                    p0[part] | (p1[part] << 16);
+        }
+        fence_proxy_async();
+    };
+
+    if (r == 0) {
+        mbar_init(&sm.bar[0]);
+        mbar_init(&sm.bar[1]);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    // the padding columns [3C, NPAD) of every part and stage hold zeros
+    constexpr int PADW = (S::NPAD - S::K3) * CAP / 2;  // 32-bit words per part
+    if constexpr (PADW > 0) {
+        for (int i = r; i < 2 * 3 * PADW; i += TILE) {
+            const int sp = i / PADW, w = i % PADW;  // (stage, part), word
+            reinterpret_cast<uint32_t*>(sm.parts[sp / 3])[((sp % 3) * S::NPAD + S::K3) * CAP / 2 + w] = 0u;
+        }
+    }
+    __syncthreads();
+    if (r == 0) {
+        stage(t, 0);
+        if (t + grid < a.tiles) stage(t + grid, 1);
+    }
+    mbar_wait(&sm.bar[0], 0);
+    split(0);
+    __syncthreads();
+
+    for (int j = 0; t < a.tiles; ++j, t += grid) {
+        const int s = j & 1;
+        const bool next = t + grid < a.tiles;
+        // selection on the tensor cores, staged in the warp's rows of scan1
+        float d[C];
+        mma_select_distances<C>(sm.parts[s], sm.uv[s][r], sm.scan1 + (r & ~31), lane, d);
+        if (args.dist != nullptr) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) args.dist[((long long)t * C + c) * TILE + r] = d[c];
+        }
+        // from here on K1's loop: the Gaussian tables, coalesced
+        const float* g = a.gtab + (long long)t * 3 * P * TILE + r;
+        float v[2 * C];
+#pragma unroll
+        for (int i = 0; i < 2 * C; ++i) v[i] = 0.f;
+#pragma unroll 4
+        for (int p = 0; p < P; ++p)
+            gauss_entry<C>(d, g[p * TILE], g[(P + p) * TILE], g[(2 * P + p) * TILE], v);
+        const float* ax = a.aux + (long long)t * 7 * TILE + r;
+        const float fb = ax[0], fp = ax[TILE];
+        const float mninv = ax[2 * TILE], mnhalf = ax[3 * TILE], gate = ax[4 * TILE];
+        const float thr = ax[5 * TILE], selff = ax[6 * TILE];
+
+        // sub -> block: scores and pass counts scan together
+#pragma unroll
+        for (int i = 0; i < 2 * C; ++i) sm.scan1[i * TILE + r] = v[i];
+        sm.scan1[2 * C * TILE + r] = fb;
+        if (next) {  // tile j+1's tables have landed (issued a tile ago)
+            mbar_wait(&sm.bar[s ^ 1], ((j + 1) >> 1) & 1);
+            split(s ^ 1);
+        }
+        __syncthreads();
+        if (r == 0 && t + 2 * grid < a.tiles) {  // stage s is read: tile j+2's tables
+            fence_proxy_async();
+            stage(t + 2 * grid, s);
+        }
+        scan_rows<2 * C>(v, fb, a.depth1, sm.scan1, r);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+            v[c] = __fmul_rn(v[c], mninv);                 // block score
+            v[C + c] = (v[C + c] < mnhalf) ? gate : 0.f;   // block fail
+        }
+        // block -> pair: [block_score; block_fail] scan together
+#pragma unroll
+        for (int i = 0; i < 2 * C; ++i) sm.scan2[i * TILE + r] = v[i];
+        sm.scan2[2 * C * TILE + r] = fp;
+        __syncthreads();
+        scan_rows<2 * C>(v, fp, a.depth2, sm.scan2, r);
+        store_pairs<C>(a.out + ((long long)t * TILE + r) * C, v, thr, selff);
+    }
+}
+
 // Dynamic shared memory above 48 KB needs the opt-in; it is set once per
 // kernel instance to the most a block may use (the launch passes the
 // bytes it needs).
@@ -983,6 +1360,19 @@ int launch_fused_stream_c(const FusedStreamArgs& a, cudaStream_t stream) {
     int blocks = 0;
     if (const int e = resident_blocks(fused_stream_kernel<C>, smem, blocks)) return e;
     fused_stream_kernel<C><<<a.tiles < blocks ? a.tiles : blocks, TILE, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+template <int C>
+int launch_fused_stream_mma_c(const FusedStreamMmaArgs& a, cudaStream_t stream) {
+    constexpr int smem = fused_stream_mma_smem<C>();
+    static_assert(smem <= MAX_SMEM, "block shared memory");
+    if (a.k1.tiles <= 0) return 0;
+    static bool configured = false;
+    if (const int e = allow_smem(fused_stream_mma_kernel<C>, configured)) return e;
+    int blocks = 0;
+    if (const int e = resident_blocks(fused_stream_mma_kernel<C>, smem, blocks)) return e;
+    fused_stream_mma_kernel<C><<<a.k1.tiles < blocks ? a.k1.tiles : blocks, TILE, smem, stream>>>(a);
     return (int)cudaGetLastError();
 }
 
@@ -1046,6 +1436,11 @@ int resources_c(int kernel, int g_cap, int r_pad, int* out) {
         case 3:
             return kernel_resources(v3_tile_kernel<C>,
                                     4LL * ((long long)g_cap * r_pad + (2 * C + 1) * TILE), out);
+        case 4:
+            return kernel_resources(fused_stream_mma_kernel<C>, fused_stream_mma_smem<C>(), out);
+        case 5:
+            return kernel_resources(screen_tile_kernel<C, FUSED_MMA, 0>,
+                                    sizeof(float) * smem_floats<C, FUSED_MMA, 0>(), out);
         default:
             return -1;
     }
@@ -1227,24 +1622,48 @@ int screen_tiles_fused_ablation(const float* pos, const int32_t* uv, const float
 }
 
 // P4: K1's inputs and output in a design variant: 0 full and 1 b4d launch
-// K1's instantiation, 2 ohbf16 the tensor-core selection, which also
-// writes its distances to dist [T, C, TILE] when dist is not null.
+// K1 (fused_stream_kernel), 2 ohbf16 K1 with the selection on wgmma
+// (fused_stream_mma_kernel), which also writes its distances to dist
+// [T, C, TILE] when dist is not null.
 int screen_tiles_fused_variant(const float* pos, const int32_t* uv, const float* gtab,
                                const float* aux, float* out, float* dist, int tiles, int c,
                                int depth1, int depth2, int variant, void* stream) {
-    TileArgs a = tile_major_args(pos, uv, gtab, aux, out, c, depth1, depth2);
+    const FusedStreamArgs k1{pos, uv, gtab, aux, out, tiles, depth1, depth2};
+    const FusedStreamMmaArgs mma{k1, dist};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (variant) {
         case 0:
-        case 1: return dist ? -1 : launch<FUSED>(a, tiles, c, stream);
-        case 2: a.dist = dist; return launch<FUSED_MMA>(a, tiles, c, stream);
+        case 1: {
+            if (dist) return -1;
+#define CALL(C) launch_fused_stream_c<C>(k1, s)
+            DISPATCH_C(c, CALL)
+#undef CALL
+        }
+        case 2: {
+#define CALL(C) launch_fused_stream_mma_c<C>(mma, s)
+            DISPATCH_C(c, CALL)
+#undef CALL
+        }
         default: return -1;
     }
+}
+
+// P4 ohbf16's first design (screen_tile_kernel<C, FUSED_MMA>: one block per
+// tile, the selection on mma.sync), which the second is held to bit for
+// bit: K1's inputs and output, and the distances to dist when not null.
+int screen_tiles_ohbf16_baseline(const float* pos, const int32_t* uv, const float* gtab,
+                                 const float* aux, float* out, float* dist, int tiles, int c,
+                                 int depth1, int depth2, void* stream) {
+    TileArgs a = tile_major_args(pos, uv, gtab, aux, out, c, depth1, depth2);
+    a.dist = dist;
+    return launch<FUSED_MMA>(a, tiles, c, stream);
 }
 
 int screen_max_smem() { return MAX_SMEM; }
 
 // Resources of K1 and K2 (kernel 0 K1, 1 K1's first design, 2 K2, 3 K2's
-// first design) at c conformers, K2 at a [g_cap, r_pad] table: out[0..3] =
+// first design) and of P4 ohbf16 (4 its second design, 5 its first) at c
+// conformers, K2 at a [g_cap, r_pad] table: out[0..3] =
 // registers per thread, local (spill) bytes per thread, dynamic shared
 // memory per block, blocks per SM. Returns -1 for another kernel or c, -2
 // when the table does not fit.

@@ -13,8 +13,9 @@ turned into a call to the plain version. `LAUNCHES` counts kernel
 launches, one per launch, so a run can show that its path went through the
 kernels; `MODE_LAUNCHES` splits the counts of P3 and P4 by mode
 ("score_tiles_fused_ablation[noscan]", ...). K2's first design stays
-launchable as `score_tiles_v3_baseline_rows` (K1's is P3's `full`), so that
-chip_smoke.py and the GPU tests can hold K1 and K2 to them bit for bit;
+launchable as `score_tiles_v3_baseline_rows` (K1's is P3's `full`) and P4
+ohbf16's as `score_tiles_ohbf16_baseline`, so that chip_smoke.py and the
+GPU tests can hold K1, K2 and P4 ohbf16 to them bit for bit;
 `kernel_resources` gives the registers, shared memory and blocks per SM of
 both designs.
 
@@ -56,11 +57,13 @@ VARIANT_IDS = {"full": 0, "b4d": 1, "ohbf16": 2}  # P4
 LAUNCHES = {"score_tiles_fused_rows": 0, "score_tiles_v3": 0, "score_tiles_fused_dt": 0,
             "score_blocks_fused": 0, "gaussian_phase": 0, "gaussian_phase_gather": 0,
             "gaussian_phase_local": 0, "score_tiles_fused_ablation": 0,
-            "score_tiles_fused_variant": 0, "score_tiles_v3_baseline": 0}
+            "score_tiles_fused_variant": 0, "score_tiles_v3_baseline": 0,
+            "score_tiles_ohbf16_baseline": 0}
 # kernel ids of screen_kernel_resources: K1, K1's first design (P3 `full`),
-# K2, K2's first design
+# K2, K2's first design, P4 ohbf16, its first design
 RESOURCE_IDS = {"score_tiles_fused_rows": 0, "score_tiles_fused_ablation[full]": 1,
-                "score_tiles_v3": 2, "score_tiles_v3_baseline": 3}
+                "score_tiles_v3": 2, "score_tiles_v3_baseline": 3,
+                "score_tiles_fused_variant[ohbf16]": 4, "score_tiles_ohbf16_baseline": 5}
 MODE_LAUNCHES = {
     **{f"score_tiles_fused_ablation[{m}]": 0 for m in ABLATION_FLAGS},
     **{f"score_tiles_fused_variant[{m}]": 0 for m in VARIANT_IDS},
@@ -118,6 +121,8 @@ def load_library() -> ctypes.CDLL:
         lib.screen_tiles_fused_ablation.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, vp]
         lib.screen_tiles_fused_variant.restype = i
         lib.screen_tiles_fused_variant.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+        lib.screen_tiles_ohbf16_baseline.restype = i
+        lib.screen_tiles_ohbf16_baseline.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
         lib.screen_max_conformers.restype = i
         lib.screen_max_smem.restype = i
         if (lib.screen_max_conformers(), lib.screen_max_smem()) != (MAX_CONFORMERS, MAX_SMEM):
@@ -382,9 +387,9 @@ def kernel_resources(name: str, c: int, g_cap: int = 16, r_pad: int = 128,
                      device: torch.device | None = None) -> dict:
     """Registers and local (spill) bytes per thread, dynamic shared memory
     per block and resident blocks per SM
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of K1, K2 or their
-    first designs (RESOURCE_IDS) at `c` conformers, K2 at a [g_cap, r_pad]
-    group table, on the card."""
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of K1, K2, P4 ohbf16
+    or their first designs (RESOURCE_IDS) at `c` conformers, K2 at a
+    [g_cap, r_pad] group table, on the card."""
     lib = load_library()
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device or torch.device("cuda", torch.cuda.current_device())):
@@ -573,8 +578,8 @@ def score_tiles_fused_variant(
     mode: str,
     return_distances: bool = False,
 ):
-    """P4: K1's function in a design variant (`full`, `b4d`: K1's
-    instantiation; `ohbf16`: the node selection on the tensor cores).
+    """P4: K1's function in a design variant (`full`, `b4d`: K1 itself;
+    `ohbf16`: K1 with the node selection on the tensor cores, wgmma).
     Returns [T*TILE, C] rows, and with `return_distances` (ohbf16 only)
     also the [T, C, TILE] distances the kernel selected and formed."""
     if mode not in VARIANT_IDS:
@@ -588,11 +593,45 @@ def score_tiles_fused_variant(
             return rows, screen_ref.packed_row_distances(pos_blocks, uv)
         return rows
     t, c = _tile_major(pos_blocks, uv, gtab, aux)
+    _check_aligned(pos_blocks=pos_blocks, uv=uv)
     lib = load_library()
-    dev = pos_blocks.device
-    out = torch.empty((t * TILE, c), dtype=torch.float32, device=dev)
-    dist = torch.empty((t, c, TILE), dtype=torch.float32, device=dev) if return_distances else None
-    _launch("score_tiles_fused_variant", dev, lib.screen_tiles_fused_variant,
-            pos_blocks, uv, gtab, aux, out, dist, t, c, int(depth1), int(depth2),
-            VARIANT_IDS[mode], mode=mode)
+    out, dist = _rows_and_distances(t, c, pos_blocks.device, return_distances)
+    if t:
+        _launch("score_tiles_fused_variant", pos_blocks.device, lib.screen_tiles_fused_variant,
+                pos_blocks, uv, gtab, aux, out, dist, t, c, int(depth1), int(depth2),
+                VARIANT_IDS[mode], mode=mode)
     return (out, dist) if return_distances else out
+
+
+def score_tiles_ohbf16_baseline(
+    pos_blocks: torch.Tensor,  # K1's inputs
+    uv: torch.Tensor,
+    gtab: torch.Tensor,
+    aux: torch.Tensor,
+    depth1: int,
+    depth2: int,
+    return_distances: bool = False,
+):
+    """P4 ohbf16's first design (K1's first design with the selection on
+    mma.sync): the baseline that the second design is held to bit for bit.
+    Returns [T*TILE, C] rows and, with `return_distances`, the [T, C, TILE]
+    distances. No route calls it."""
+    if _on_cpu(pos_blocks, uv, gtab, aux):
+        return score_tiles_fused_variant(pos_blocks, uv, gtab, aux, depth1, depth2, "ohbf16",
+                                         return_distances)
+    t, c = _tile_major(pos_blocks, uv, gtab, aux)
+    lib = load_library()
+    out, dist = _rows_and_distances(t, c, pos_blocks.device, return_distances)
+    if t:
+        _launch("score_tiles_ohbf16_baseline", pos_blocks.device,
+                lib.screen_tiles_ohbf16_baseline, pos_blocks, uv, gtab, aux, out, dist, t, c,
+                int(depth1), int(depth2))
+    return (out, dist) if return_distances else out
+
+
+def _rows_and_distances(t: int, c: int, device: torch.device, distances: bool):
+    """P4's outputs: [T*TILE, C] rows and, when asked, [T, C, TILE]
+    distances (else None, a null pointer to the kernel)."""
+    out = torch.empty((t * TILE, c), dtype=torch.float32, device=device)
+    dist = torch.empty((t, c, TILE), dtype=torch.float32, device=device) if distances else None
+    return out, dist

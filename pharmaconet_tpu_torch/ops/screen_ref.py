@@ -356,3 +356,47 @@ def score_tiles_fused_variant(
     if mode not in VARIANTS:
         raise ValueError(f"unknown variant {mode!r}; expected one of {VARIANTS}")
     return score_tiles_fused_rows(pos_blocks, uv, gtab, aux, depth1, depth2)
+
+
+def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """P4 ohbf16's exact three-way split of f32 x into bf16 parts (hi, mid,
+    lo), each held in f32: a part keeps the top 16 bits of the residual's
+    int32 view (truncation, the kernel's __float2bfloat16_rz), and the next
+    residual is x - part, exact in f32. (hi + mid) + lo == x wherever
+    |x| >= 2^-110 or x = ±0 (-0 comes back +0, the same value, which no
+    distance tells apart); below 2^-110 the lowest part can fall under
+    bf16's subnormals and lose bits (every f32 subnormal, such as 1e-40,
+    is below it). The packers write Å coordinates and zero padding."""
+    parts = []
+    for _ in range(3):
+        part = (x.view(torch.int32) & -65536).view(torch.float32)
+        parts.append(part)
+        x = x - part
+    return parts[0], parts[1], parts[2]
+
+
+def mma_select_positions(pos_blocks: torch.Tensor, slots: torch.Tensor,
+                         cap: int = NODE_CAP) -> torch.Tensor:
+    """The node positions [T, 3C, tile] of each row's slot ([T, tile]) as
+    P4 ohbf16 selects them on the tensor cores: the unsigned one-hot
+    [tile, cap] of the slots times each bf16 part [cap, 3C] of the tile's
+    node table, in f32 (one nonzero product per column, part * 1, so each
+    product is the part exactly), then (hi + mid) + lo. A slot outside
+    [0, cap) selects 0."""
+    onehot = (slots.long()[..., None] == torch.arange(cap, device=slots.device)).float()
+    hi, mid, lo = (torch.bmm(onehot, p.transpose(1, 2)) for p in split_bf16(pos_blocks))
+    return ((hi + mid) + lo).transpose(1, 2)
+
+
+def mma_row_distances(pos_blocks: torch.Tensor, uv: torch.Tensor,
+                      cap: int = NODE_CAP) -> torch.Tensor:
+    """P4 ohbf16's distances [T, C, tile] as its kernel forms them: both
+    nodes' positions by mma_select_positions, d = pos_u - pos_v per axis,
+    sqrt((dx²+dy²)+dz²)."""
+    uvl = uv.long()
+    dvec = mma_select_positions(pos_blocks, uvl // cap, cap) - \
+        mma_select_positions(pos_blocks, uvl % cap, cap)
+    t, threec, tile = dvec.shape
+    dvec = dvec.reshape(t, threec // 3, 3, tile)
+    dx, dy, dz = dvec[:, :, 0], dvec[:, :, 1], dvec[:, :, 2]
+    return torch.sqrt((dx * dx + dy * dy) + dz * dz)

@@ -3,12 +3,17 @@
 the count of -1 mismatches, within rtol 2e-5 / atol 1e-4 and no
 mismatch) before the modes are timed in turn over three rounds (median):
 
-  full    K1
+  full    K1 (fused_stream_kernel)
   b4d     the TPU variant without the [P*C, TILE] broadcast copies; a
           thread per row builds none, so on the card it is K1's own code
-  ohbf16  the node positions selected on the tensor cores (exact
-          three-way bf16 split, unsigned one-hots, mma.sync), distances
-          bit-equal to K1's
+  ohbf16  K1 with the node positions selected on the tensor cores (exact
+          three-way bf16 split, unsigned one-hots, wgmma), rows and
+          distances bit-equal to K1's
+
+So the modes differ from K1 in the selection alone. The first ohbf16
+design (mma.sync inside K1's first design) stays launchable as
+`screen_cuda.score_tiles_ohbf16_baseline`; chip_smoke.py times it beside
+ohbf16.
 
 The counterpart of the repo's probes/probe_kernel_r3.py.
 

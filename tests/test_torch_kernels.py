@@ -143,7 +143,8 @@ def test_cuda_kernels_match_plain(cuda, c):
                                     "score_tiles_fused_dt": 0, "score_blocks_fused": 1,
                                     "gaussian_phase": 1, "gaussian_phase_gather": 0,
                                     "gaussian_phase_local": 0, "score_tiles_fused_ablation": 0,
-                                    "score_tiles_fused_variant": 0, "score_tiles_v3_baseline": 0}
+                                    "score_tiles_fused_variant": 0, "score_tiles_v3_baseline": 0,
+                                    "score_tiles_ohbf16_baseline": 0}
 
 
 @pytest.mark.gpu
@@ -442,8 +443,9 @@ def test_cuda_zero_tiles_launch_nothing(cuda):
 
 @pytest.mark.gpu
 def test_cuda_k1_k2_resources(cuda):
-    """Registers, shared memory and blocks per SM of K1, K2 and their first
-    designs: every design fits a block of 1024 threads per SM at every C."""
+    """Registers, shared memory and blocks per SM of K1, K2, P4 ohbf16 and
+    their first designs: every design fits a block of 1024 threads per SM at
+    every C."""
     for name in screen_cuda.RESOURCE_IDS:
         for c in ALL_CONFORMERS:
             res = screen_cuda.kernel_resources(name, c)
@@ -521,9 +523,11 @@ def test_cuda_p1_p2_match_plain(cuda, c):
 @pytest.mark.gpu
 @pytest.mark.parametrize("c", CONFORMERS)
 def test_cuda_p3_p4_match_plain_and_k1(cuda, c):
-    """Every ablation against its plain version, `full` bit-equal to K1,
-    every variant against K1, and ohbf16's distances bit-equal to the
-    prepack-time distances (numpy, correctly rounded)."""
+    """Every ablation against its plain version, `full` bit-equal to K1;
+    every variant against its plain version and bit-equal to K1 (`full` and
+    `b4d` launch K1, `ohbf16` K1 with the selection on wgmma); ohbf16's
+    first design bit-equal to K1 too, and both designs' distances to each
+    other and to the prepack-time distances (numpy, correctly rounded)."""
     ti = probe_prep.tiled_inputs(*probe_prep.headline_inputs(24, num_conformers=c))
     x = [torch.from_numpy(a).to(cuda) for a in ti.arrays]
     d = (ti.depth1, ti.depth2)
@@ -533,13 +537,57 @@ def test_cuda_p3_p4_match_plain_and_k1(cuda, c):
         got = screen_cuda.score_tiles_fused_ablation(*x, *d, mode)
         assert_scores_close(got, screen_ref.score_tiles_fused_ablation(*x, *d, mode))
         if mode == "full":
-            assert torch.equal(got, k1)  # K1's own instantiation
+            assert torch.equal(got, k1)  # K1's first design
     for mode in screen_ref.VARIANTS:
-        assert_scores_close(screen_cuda.score_tiles_fused_variant(*x, *d, mode), k1)
+        got = screen_cuda.score_tiles_fused_variant(*x, *d, mode)
+        assert_scores_close(got, screen_ref.score_tiles_fused_variant(*x, *d, mode))
+        assert torch.equal(got, k1), mode
     _, dist = screen_cuda.score_tiles_fused_variant(*x, *d, "ohbf16", return_distances=True)
+    first, first_dist = screen_cuda.score_tiles_ohbf16_baseline(*x, *d, return_distances=True)
+    assert torch.equal(first, k1) and torch.equal(dist, first_dist)
     assert torch.equal(dist.cpu(), torch.from_numpy(tile_distances(ti.pos_blocks, ti.uv,
                                                                    native=False)))
     torch.cuda.synchronize()
     assert screen_cuda.LAUNCHES["score_tiles_fused_ablation"] == 5
     assert screen_cuda.LAUNCHES["score_tiles_fused_variant"] == 4
     assert screen_cuda.MODE_LAUNCHES["score_tiles_fused_variant[ohbf16]"] == 2
+    assert screen_cuda.LAUNCHES["score_tiles_ohbf16_baseline"] == 1
+
+
+def _tagged_k1(c: int, tiles: int, seed: int, device):
+    """K1's random inputs (depths 2 and 5) with a tagged node table: every
+    (coordinate, slot) value of a tile distinct (its index + 1 plus a
+    random fraction below 1/2, so that all three bf16 parts are nonzero,
+    times 0.01 Å), so that an element the wgmma reads from the wrong place
+    (descriptor, swizzle, padding) moves a distance."""
+    args = _random_k1(c, tiles, 2, 5, seed, device)
+    rng = np.random.default_rng(seed)
+    idx = np.arange(3 * c * 64, dtype=np.float64).reshape(3 * c, 64)
+    pos = ((idx + 1 + rng.uniform(0.0, 0.5, size=(tiles, 3 * c, 64))) * 0.01).astype(np.float32)
+    assert all(len(np.unique(p)) == p.size for p in pos)
+    return [torch.from_numpy(pos).to(device), *args[1:]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", CONFORMERS)
+def test_cuda_ohbf16_bit_equal_to_k1_and_its_first_design(cuda, c):
+    """P4 ohbf16 (K1 with the selection on wgmma): rows bit-equal to K1's
+    and to its first design's, distances to its first design's and to the
+    prepack-time distances, on a packed batch, on random layouts (windowed
+    and block-wide scans, no scan step, 300 tiles: not a multiple of the
+    persistent grid) and on a tagged node table (301 tiles)."""
+    tb, _ = _layouts(c)
+    cases = [(_k1_args(tb, cuda), (tb.depth1, tb.depth2))]
+    cases += [(_random_k1(c, tiles, d1, d2, 20 * c + d2, cuda), (d1, d2))
+              for tiles, d1, d2 in ((3, 1, 3), (2, 6, 7), (300, 2, 5), (1, 0, 0))]
+    cases += [(_tagged_k1(c, 301, c, cuda), (2, 5))]
+    for args, d in cases:
+        rows, dist = screen_cuda.score_tiles_fused_variant(*args, *d, "ohbf16",
+                                                           return_distances=True)
+        first, first_dist = screen_cuda.score_tiles_ohbf16_baseline(*args, *d,
+                                                                    return_distances=True)
+        assert torch.equal(rows, screen_cuda.score_tiles_fused_rows(*args, *d)), d
+        assert torch.equal(rows, first) and torch.equal(dist, first_dist), d
+        assert torch.equal(screen_cuda.score_tiles_fused_variant(*args, *d, "ohbf16"), rows), d
+        want = tile_distances(args[0].cpu().numpy(), args[1].cpu().numpy(), native=False)
+        assert torch.equal(dist.cpu(), torch.from_numpy(want)), d
