@@ -71,6 +71,23 @@ Phases, in order; any failure exits non-zero:
                library), with the embedder's stages, steps, retry rounds
                and rejected share, and the numpy backend's prepack of the
                same file (one worker per core); one {"smiles": ...} line
+ 10. proxy   — the third product on phase 7's full-width trunk and
+               checkpoint: feature extraction in process
+               (api.get_pmnet_dev) and through its CLI (.npz, .pt), the
+               CLI's arrays against the in-process ones; both docking
+               proxies (TacoGFN, SBDDReward) at the published widths from
+               _init_random: get_cache fused against unfused, the card's
+               cache against the CPU's on the same pyramid, a 3-pocket
+               get_cache_database (seeds 0-2, pockets/s), then 16 hotspots
+               x 2048 fragment SMILES (phase 9's list): scores against the
+               CPU's, solo = batched, an invalid SMILES scoring 0.0
+               (SBDDReward), tensorfloat32 and bfloat16 within the JAX
+               tests' bounds of float32, host ms of featurization and of
+               batch_graphs + copy, device ms of the forward, molecules/s
+               and peak memory; the modeling CLI's ligand detection
+               (--ligand_id, --all) against --ref_ligand on the ligand file
+               it wrote; K6's launch count reset just before and read just
+               after every path: once per pocket; one {"proxy": ...} line
 Then prints the {"kernels": [...]} line, the nvidia-smi name/power line, and
 last {"ok": true, "device": {...}}. A kernel's `ms` is one call between two
 CUDA events (host work included), `stream_ms` its time per call back to
@@ -81,7 +98,8 @@ timers, same rounds), `bit_equal_to_baseline`, and `occupancy` /
 `baseline_occupancy`: registers and local bytes per thread, shared memory
 per block and blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor;
 K6's `occupancy` per kernel of its two launches). K1-K3 add their launch
-counts on the 12-conformer routes.
+counts on the 12-conformer routes, K6 `launches_proxy` (phase 10's total)
+and `launches_proxy_paths` (per path).
 """
 
 from __future__ import annotations
@@ -1061,12 +1079,13 @@ def chunk_bounds(smiles: list[str]):
             torch.tensor([m.num_atoms for m in mols]), nb)
 
 
-def device_busy(fn) -> dict:
+def device_busy(fn, top: int = 0) -> dict:
     """Host wall ms of one synchronised call of `fn`, and the card's busy ms
     in it: the sum of its kernels' durations in a torch.profiler trace of a
     second call (one stream, so kernels do not overlap), their count, and
     the card's idle share of the wall time. None where the trace shows no
-    kernel."""
+    kernel. `top` > 0 adds the `top` kernel names with the most busy ms
+    (name cut to 90 characters, ms, launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1081,8 +1100,17 @@ def device_busy(fn) -> dict:
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                and "Memcpy" not in e.name and "Memset" not in e.name]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 if kernels else None
-    return dict(wall_ms=wall, busy_ms=busy, kernels=len(kernels),
-                idle_share=None if busy is None else 1.0 - busy / wall)
+    out = dict(wall_ms=wall, busy_ms=busy, kernels=len(kernels),
+               idle_share=None if busy is None else 1.0 - busy / wall)
+    if top:
+        by_name: dict[str, list] = {}
+        for e in kernels:
+            slot = by_name.setdefault(e.name[:90], [0.0, 0])
+            slot[0] += e.time_range.elapsed_us() / 1e3
+            slot[1] += 1
+        out["top_kernels"] = sorted(([n, ms, c] for n, (ms, c) in by_name.items()),
+                                    key=lambda r: -r[1])[:top]
+    return out
 
 
 def embed_card_vs_cpu(dev) -> dict:
@@ -1264,6 +1292,321 @@ def phase_smiles(dev, kernels: dict, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 10: feature extraction and the docking proxies
+# --------------------------------------------------------------------------
+PROXY_HOTSPOTS, PROXY_SEEDS = 16, {"TacoGFN": 7, "SBDDReward": 8}
+PYRAMID_SHAPES = [(1, d, d, d, 96) for d in (4, 8, 16, 32, 64)]  # the published trunk's
+FEATURE_TOL = 1e-5  # CLI arrays against in-process ones (atol and rtol)
+# the JAX tests' bounds of a precision against float32 (tests/test_proxy.py)
+PRECISION_TOL = {"tensorfloat32": (5e-3, 1e-3), "bfloat16": (5e-2, 0.3)}
+
+
+def k6_count(fn):
+    """(fn's result, K6 launches it made): counts reset just before, read
+    just after."""
+    from pharmaconet_tpu_torch.ops import voxelize_cuda
+
+    voxelize_cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, voxelize_cuda.LAUNCHES["voxelize_pallas"]
+
+
+def once_per_pocket(name: str, launches: int, pockets: int = 1) -> None:
+    if launches != pockets:
+        raise AssertionError(f"{name} launched voxelize_pallas {launches} times for "
+                             f"{pockets} pocket(s)")
+
+
+def host_s(fn, reps: int = 3):
+    """(last result, median host seconds), each call ending in a synchronize."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, statistics.median(times)
+
+
+class Checks:
+    """Phase 10's comparisons: every one runs and is recorded (largest
+    difference, largest reference magnitude); `raise_misses` fails the phase
+    on any miss at its end, so one run shows every disagreement.
+
+    Two forms. Element by element (`np.allclose`) where both sides run the
+    same kernels in the same order (fused vs unfused, solo vs batched, the
+    database vs get_cache). Against the largest reference value
+    (|got - want| <= atol + rtol * max|want|) where the summation order or
+    the precision differs (card vs CPU, TF32 and bf16 vs f32): the error of
+    a sum is relative to the magnitudes summed, not to the result, and a
+    random-init TacoGFN sums pair energies of thousands into scores near
+    zero. Both forms are recorded (`elementwise`)."""
+
+    def __init__(self):
+        self.misses: list[str] = []
+        self.seen: dict[str, dict] = {}
+
+    def close(self, name: str, got, want, rtol=RTOL, atol=ATOL, scaled=False) -> float:
+        """Arrays (or tuples of arrays and numbers) within rtol/atol, element
+        by element or (`scaled`) against each array's largest value."""
+        pairs = list(zip(got, want, strict=True)) if isinstance(want, tuple) else [(got, want)]
+        worst = scale = 0.0
+        ok = elementwise = True
+        for a, b in pairs:
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            if a.shape != b.shape or not np.isfinite(a).all():
+                ok = elementwise = False
+                continue
+            if a.size:
+                err, ref = float(np.abs(a - b).max()), float(np.abs(b).max())
+                worst, scale = max(worst, err), max(scale, ref)
+                elementwise &= bool(np.allclose(a, b, rtol=rtol, atol=atol))
+                ok &= err <= atol + rtol * ref if scaled else elementwise
+        self.seen[name] = dict(max_abs_err=worst, max_abs_ref=scale, elementwise=elementwise)
+        if not ok:
+            self.misses.append(f"{name}: max abs err {worst:.3g} (reference up to {scale:.3g}, "
+                               f"rtol {rtol}, atol {atol}, "
+                               f"{'scaled' if scaled else 'elementwise'})")
+        return worst
+
+    def true(self, name: str, ok: bool, detail: str) -> None:
+        if not ok:
+            self.misses.append(f"{name}: {detail}")
+
+    def raise_misses(self) -> None:
+        if self.misses:
+            raise AssertionError("phase 10 misses:\n  " + "\n  ".join(self.misses))
+
+
+def proxy_split(proxy, cache, smiles: list[str]) -> dict:
+    """One 2048-SMILES batch's parts, median of 3: host ms of the C++
+    featurization and of batch_graphs + the copy to the card, device ms of
+    the forward (CUDA events), and the whole scoring_list call."""
+    from pharmaconet_tpu_torch.proxy.data import batch_graphs, half_octave, smi2graph_list
+    from pharmaconet_tpu_torch.proxy.tacogfn import graph_batch_to_arrays
+
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        graphs = smi2graph_list(smiles)
+        t1 = time.perf_counter()
+        batch = batch_graphs(graphs, num_graphs_pad=half_octave(len(graphs)))
+        arrays = graph_batch_to_arrays(batch, proxy.categorical, device=proxy.device)
+        args = proxy._forward_inputs(cache, arrays)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        proxy._forward(*args)
+        end.record()
+        end.synchronize()
+        _, total = host_s(lambda: proxy._scoring_list(cache, smiles), reps=1)
+        runs.append(dict(featurize_ms=(t1 - t0) * 1e3, batch_and_copy_ms=(t2 - t1) * 1e3,
+                         forward_device_ms=start.elapsed_time(end), scoring_list_ms=total * 1e3,
+                         atoms=int(batch.atom_valid.sum()), atoms_padded=len(batch.atom_valid)))
+    out = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    out["mol_per_s"] = len(smiles) / (out["scoring_list_ms"] / 1e3)
+    return out
+
+
+def phase_proxy(dev, kernels: dict, card: str) -> dict:
+    """Feature extraction (get_pmnet_dev and the CLI, .npz and .pt), both
+    docking proxies at the published widths (get_cache fused and not, the
+    card against the CPU, a 3-pocket cache database, 2048-SMILES scoring in
+    each precision) and the modeling CLI's ligand detection, on the
+    full-width trunk of phase 7; K6 counted on every path."""
+    from pharmaconet_tpu_torch import api
+    from pharmaconet_tpu_torch.chem.fragments import enumerate_fragment_smiles
+    from pharmaconet_tpu_torch.cli import feature_extraction as fe_cli
+    from pharmaconet_tpu_torch.cli.modeling import build_parser as modeling_parser
+    from pharmaconet_tpu_torch.cli.modeling import main as modeling_main
+    from pharmaconet_tpu_torch.network.convert import (
+        random_distributions,
+        save_torch_checkpoint,
+        synthesize_torch_state_dict,
+    )
+    from pharmaconet_tpu_torch.pharmacophore.model import PharmacophoreModel
+    from pharmaconet_tpu_torch.proxy.proxies import SBDDReward_Proxy, TacoGFN_Proxy
+    from pharmaconet_tpu_torch.synthetic import append_het_ligands, write_synthetic_pocket
+
+    out: dict = {"card": card}
+    k6: dict[str, int] = {}
+    check = Checks()
+    pockets = []
+    for seed in range(3):
+        pdb = WORK / f"proxy_pocket{seed}.pdb"
+        pockets.append((pdb, write_synthetic_pocket(pdb, seed=seed)["center"]))
+    pdb, center = pockets[0]
+    ckpt = WORK / "proxy_ckpt.tar"
+    save_torch_checkpoint(ckpt, synthesize_torch_state_dict(CKPT_SEED, CKPT_SCALE),
+                          random_distributions(), config={"synthesized": [CKPT_SEED, CKPT_SCALE]})
+
+    # 1. feature extraction: in process, then the CLI (.npz, .pt)
+    net = api.get_pmnet_dev(device=dev, weight_path=ckpt)
+    (feats, infos), k6["feature_extraction"] = k6_count(
+        lambda: net.feature_extraction(pdb, center=center))
+    once_per_pocket("feature_extraction", k6["feature_extraction"])
+    _, out["feature_extraction_s"] = host_s(lambda: net.feature_extraction(pdb, center=center))
+    if [f.shape for f in feats] != PYRAMID_SHAPES or len(infos) < PROXY_HOTSPOTS:
+        raise AssertionError(f"feature extraction: shapes {[f.shape for f in feats]}, "
+                             f"{len(infos)} hotspots")
+    x, y, z = center
+    cli_err = 0.0
+    for suffix in ("npz", "pt"):
+        args = fe_cli.build_parser().parse_args([
+            "-p", str(pdb), "--center", str(x), str(y), str(z), "-o",
+            str(WORK / f"features.{suffix}"), "--weight_path", str(ckpt), "--device", str(dev)])
+        (rc, wall), k6[f"feature_extraction_cli_{suffix}"] = k6_count(
+            lambda: host_s(lambda: fe_cli.main(args), reps=1))
+        once_per_pocket(f"feature_extraction CLI .{suffix}", k6[f"feature_extraction_cli_{suffix}"])
+        out[f"feature_extraction_cli_{suffix}_s"] = wall
+        if rc != 0:
+            raise AssertionError(f"feature_extraction CLI .{suffix} exited {rc}")
+    saved = np.load(WORK / "features.npz")
+    pt_feats, pt_infos = torch.load(WORK / "features.pt", weights_only=False)
+    if int(saved["num_hotspots"]) != len(infos) or len(pt_infos) != len(infos):
+        raise AssertionError(f"feature_extraction CLI: {int(saved['num_hotspots'])} / "
+                             f"{len(pt_infos)} hotspots, in process {len(infos)}")
+    for i, f in enumerate(feats):
+        for got in (saved[f"feature_{i}"], pt_feats[i].numpy()):
+            cli_err = max(cli_err, float(np.abs(got - f).max()))
+            if not np.allclose(got, f, rtol=FEATURE_TOL, atol=FEATURE_TOL):
+                raise AssertionError(f"feature_extraction CLI: level {i} differs")
+    for i, info in enumerate(infos):
+        if tuple(saved[f"hotspot_{i}_position"]) != info["hotspot_position"] or \
+                str(saved[f"hotspot_{i}_nci_type"]) != info["nci_type"]:
+            raise AssertionError(f"feature_extraction CLI: hotspot {i} differs")
+        cli_err = max(cli_err, float(np.abs(saved[f"hotspot_{i}_feature"]
+                                            - info["hotspot_feature"]).max()))
+    out["feature_extraction_cli_max_abs_err"] = cli_err
+    log(f"  feature extraction: {len(infos)} hotspots, {out['feature_extraction_s']:.3f} s per "
+        f"pocket in process, CLI .npz {out['feature_extraction_cli_npz_s']:.3f} s / .pt "
+        f"{out['feature_extraction_cli_pt_s']:.3f} s (network build included), CLI arrays "
+        f"within {cli_err:.3g} of in-process")
+
+    # 2.-4. both proxies at the published widths
+    smiles = [s for _, s in enumerate_fragment_smiles(SMILES_N, seed=SMILES_SEED)]
+    for name, cls in (("TacoGFN", TacoGFN_Proxy), ("SBDDReward", SBDDReward_Proxy)):
+        res: dict = {}
+        proxy = cls(device=dev, pmnet_kwargs={"weight_path": ckpt})
+        proxy._init_random(PROXY_SEEDS[name])
+        cpu = cls(device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in proxy.model.state_dict().items()})
+
+        fused, k6[f"{name}_get_cache_fused"] = k6_count(lambda: proxy.get_cache(pdb, center=center))
+        unfused, k6[f"{name}_get_cache_unfused"] = k6_count(
+            lambda: proxy.get_cache(pdb, center=center, fused=False))
+        once_per_pocket(f"{name} get_cache(fused=True)", k6[f"{name}_get_cache_fused"])
+        once_per_pocket(f"{name} get_cache(fused=False)", k6[f"{name}_get_cache_unfused"])
+        res["fused_vs_unfused_max_abs_err"] = check.close(f"{name} fused vs unfused", fused,
+                                                          unfused)
+        _, res["get_cache_fused_ms"] = host_s(lambda: proxy.get_cache(pdb, center=center))
+        _, res["get_cache_unfused_ms"] = host_s(
+            lambda: proxy.get_cache(pdb, center=center, fused=False))
+        res["get_cache_fused_ms"] *= 1e3
+        res["get_cache_unfused_ms"] *= 1e3
+        card_cache = proxy._get_cache(feats, infos)
+        res["cache_card_vs_cpu_max_abs_err"] = check.close(
+            f"{name} cache card vs CPU", card_cache, cpu._get_cache(feats, infos), scaled=True)
+
+        if name == "SBDDReward":  # 3. the cache database
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            db, k6["cache_database_3_pockets"] = k6_count(lambda: proxy.get_cache_database(
+                {f"pocket{i}": p for i, p in enumerate(pockets)}, verbose=False))
+            wall = time.perf_counter() - t0
+            once_per_pocket("get_cache_database", k6["cache_database_3_pockets"], 3)
+            if sorted(db) != ["pocket0", "pocket1", "pocket2"]:
+                raise AssertionError(f"get_cache_database built {sorted(db)}")
+            check.close("cache database vs get_cache", db["pocket0"], fused)
+            out["cache_database"] = dict(pockets=3, wall_s=wall, pockets_per_s=3 / wall)
+            log(f"  SBDDReward get_cache_database: 3 pockets in {wall:.3f} s "
+                f"({3 / wall:.3f} pockets/s), K6 launches 3")
+
+        # 4. scoring at bench.py's proxy shape: 16 hotspots, 2048 SMILES
+        cache = proxy._get_cache(feats, infos[:PROXY_HOTSPOTS])
+        want = proxy._scoring_list(cache, smiles)  # float32, also the warm-up
+        res["scores_card_vs_cpu_max_abs_err"] = check.close(
+            f"{name} 2048 scores card vs CPU", want, cpu._scoring_list(cache, smiles),
+            scaled=True)
+        solo = np.concatenate([proxy._scoring_list(cache, [s]) for s in smiles[:16]])
+        res["solo_vs_batched_max_abs_err"] = check.close(
+            f"{name} solo vs batched", solo, proxy._scoring_list(cache, smiles[:16]),
+            rtol=2e-4, atol=1e-5)
+        if name == "SBDDReward":
+            mixed = proxy._scoring_list(cache, [smiles[0], "c11", smiles[1]])
+            check.true("SBDDReward invalid SMILES", mixed[1] == 0.0, f"scored {mixed[1]}")
+            check.close("SBDDReward with an invalid SMILES", mixed[[0, 2]], want[:2],
+                        rtol=2e-4, atol=1e-5)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res["float32"] = proxy_split(proxy, cache, smiles)
+        res["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        res["float32_busy"] = device_busy(lambda: proxy._scoring_list(cache, smiles), top=6)
+        for precision, (rtol, atol) in PRECISION_TOL.items():
+            other = cls(device=dev, precision=precision)
+            other.load_state_dict(proxy.model.state_dict())
+            got = other._scoring_list(cache, smiles)
+            res[f"{precision}_vs_float32_max_abs_err"] = check.close(
+                f"{name} {precision} vs float32", got, want, rtol=rtol, atol=atol, scaled=True)
+            res[precision] = proxy_split(other, cache, smiles)
+        out[name] = res
+        log(f"  {name}: get_cache {res['get_cache_fused_ms']:.1f} ms fused / "
+            f"{res['get_cache_unfused_ms']:.1f} unfused per pocket (K6 once each), fused vs "
+            f"unfused {res['fused_vs_unfused_max_abs_err']:.3g}, card vs CPU cache "
+            f"{res['cache_card_vs_cpu_max_abs_err']:.3g}, 2048 scores "
+            f"{res['scores_card_vs_cpu_max_abs_err']:.3g}; peak {res['peak_memory_gib']:.2f} GiB")
+        for precision in ("float32", *PRECISION_TOL):
+            log(f"    {precision}: {res[precision]}")
+        log(f"    float32 scoring_list on the card (torch.profiler): {res['float32_busy']}")
+        del proxy, other, cpu
+        torch.cuda.empty_cache()
+
+    # 5. the modeling CLI's ligand detection
+    het = WORK / "proxy_complex.pdb"
+    het.write_text(pdb.read_text())
+    append_het_ligands(het, [("LIG", "A", 901, center)], {"LIG": "SMOKE LIGAND"})
+    runs = {}
+    for label, extra in (("ligand_id", ["--ligand_id", "LIG"]), ("all", ["--all"]),
+                         ("ref_ligand", ["--ref_ligand", str(WORK / "cli_ligand_id" /
+                                                          "cx_B_LIG.pdb")])):
+        args = modeling_parser().parse_args([
+            "-p", str(het), "--prefix", "cx", "--out_dir", str(WORK / f"cli_{label}"),
+            "--weight_path", str(ckpt), "--device", str(dev), *extra])
+        (rc, wall), k6[f"modeling_cli_{label}"] = k6_count(
+            lambda: host_s(lambda: modeling_main(args), reps=1))
+        once_per_pocket(f"modeling CLI {label}", k6[f"modeling_cli_{label}"])
+        if rc != 0:
+            raise AssertionError(f"modeling CLI {label} exited {rc}")
+        pm = sorted((WORK / f"cli_{label}").glob("*_model.pm"))
+        if len(pm) != 1:
+            raise AssertionError(f"modeling CLI {label} wrote {[p.name for p in pm]}")
+        runs[label] = (pm[0], wall)
+    want_pm = PharmacophoreModel.load(str(runs["ref_ligand"][0]))
+    detect = {}
+    for label in ("ligand_id", "all"):
+        err = check_pm(f"modeling CLI {label} vs --ref_ligand",
+                       PharmacophoreModel.load(str(runs[label][0])), want_pm)
+        if err > FEATURE_TOL:
+            raise AssertionError(f"modeling CLI {label}: node centres {err} from --ref_ligand's")
+        detect[label] = dict(wall_s=runs[label][1], max_node_centre_diff=err,
+                             bytes_equal=runs[label][0].read_bytes() ==
+                             runs["ref_ligand"][0].read_bytes())
+    out["modeling_detection"] = detect
+    log(f"  modeling CLI ligand detection: {detect} (--ref_ligand "
+        f"{runs['ref_ligand'][1]:.3f} s), {len(want_pm.nodes)} nodes")
+
+    out["k6_launches"] = k6
+    out["comparisons"] = check.seen
+    kernels["voxelize_pallas"]["launches_proxy"] = sum(k6.values())
+    kernels["voxelize_pallas"]["launches_proxy_paths"] = k6
+    log(f"  comparisons: {check.seen}")
+    check.raise_misses()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1299,6 +1642,8 @@ def main() -> int:
         phase_probes(pm, make_synthetic_ligands(N_BATCH, num_conformers=4, seed=1), dev, kernels)
         log("[9] SMILES input: the torch embedder on the card, K1 on its output")
         print(json.dumps({"smiles": phase_smiles(dev, kernels, smi)}), flush=True)
+        log("[10] feature extraction and the docking proxies at full width")
+        print(json.dumps({"proxy": phase_proxy(dev, kernels, smi)}), flush=True)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

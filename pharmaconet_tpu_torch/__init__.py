@@ -5,8 +5,10 @@ The package imports torch and never jax, and keeps its own copy of every
 module it needs. Pocket modeling (protein + centre -> `.pm`, `module.py`)
 and screening (`.pm` + ligand library -> ranked CSV) run on the card
 through hand-written CUDA kernels (`csrc/voxelize.cu`,
-`csrc/screen_fused.cu`); entry points take an explicit `device` and use
-the card unless the caller asks for the CPU.
+`csrc/screen_fused.cu`); the trunk also serves as a pocket encoder
+(`api.get_pmnet_dev`, feature extraction) for the docking proxies
+(`proxy/`). Entry points take an explicit `device` and use the card unless
+the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

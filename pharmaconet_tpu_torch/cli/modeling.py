@@ -1,15 +1,22 @@
 """Pharmacophore modeling CLI on one torch device.
 
-Flags, output naming and caching follow `pharmaconet_tpu`'s modeling CLI:
-a protein PDB (-p) and a box centre (--center x y z, or the centroid of
---ref_ligand) give `<out_dir>/<prefix>_<x>_<y>_<z>_model.pm` (or
-`<prefix>_<ligand stem>_model.pm`), reused unless --force, plus a PyMOL
-visualization (.pse with pymol installed, a .pml script otherwise).
-Modeling runs on --device (default cuda; asking for cuda without a
-visible card is an error, never a quiet move to the CPU).
+Flags, output naming, caching and ligand detection follow
+`pharmaconet_tpu`'s modeling CLI. The protein is a local PDB (-p) or an
+RCSB entry (--pdb, downloaded once to <out_dir>/<prefix>.pdb). The box
+centre is --center x y z, the centroid of --ref_ligand, or, by default, a
+HET ligand of the PDB: one ligand is modelled directly; several are chosen
+with --ligand_id / --chain, all with --all, or interactively; with no
+ligand the centre is asked for. Each site gives
+`<out_dir>/<prefix>_<chain>_<ligand id>_model.pm` (`<prefix>_<x>_<y>_<z>_model.pm`
+for a centre, `<prefix>_<ligand stem>_model.pm` for --ref_ligand), reused
+unless --force, plus a PyMOL visualization (.pse with pymol installed, a
+.pml script otherwise). Modeling runs on --device (default cuda; asking
+for cuda without a visible card is an error, never a quiet move to the
+CPU).
 
   python -m pharmaconet_tpu_torch.cli.modeling -p pocket.pdb --center 1.0 2.0 3.0 \\
       --prefix pocket --weight_path model.tar --device cuda
+  python -m pharmaconet_tpu_torch.cli.modeling -p complex.pdb --ligand_id LIG --device cuda
 """
 
 from __future__ import annotations
@@ -30,10 +37,14 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
     cfg = parser.add_argument_group("config")
-    cfg.add_argument("--pdb", type=str, help="RCSB PDB code (not yet ported)")
+    cfg.add_argument("--pdb", type=str, help="RCSB PDB code")
+    cfg.add_argument("-l", "--ligand_id", type=str, help="RCSB ligand code")
     cfg.add_argument("-p", "--protein", type=str, help="custom path of protein pdb file (.pdb)")
+    cfg.add_argument("-c", "--chain", type=str, help="chain")
+    cfg.add_argument("-a", "--all", action="store_true", help="use all binding sites")
     cfg.add_argument("--out_dir", type=str, help="output directory. default: ./result/{prefix}")
-    cfg.add_argument("--prefix", type=str, help="task name. default: the protein file's stem")
+    cfg.add_argument("--prefix", type=str,
+                     help="task name. default: the PDB code or the protein file's stem")
     cfg.add_argument("--suffix", choices=("pm", "json"), default="pm", help="model file extension")
 
     env = parser.add_argument_group("environment")
@@ -57,53 +68,137 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _ask_center() -> tuple[float, float, float] | None:
+    try:
+        return tuple(float(input(f"{axis}: ")) for axis in "xyz")
+    except (EOFError, ValueError):
+        return None
+
+
 def main(args) -> int:
-    for flag, name in ((args.pdb, "--pdb"), (args.shard, "--shard"), (args.profile, "--profile")):
+    for flag, name in ((args.shard, "--shard"), (args.profile, "--profile")):
         if flag:
             print(f"{name} is not yet ported to pharmaconet_tpu_torch", file=sys.stderr)
             return FAIL
-    if args.protein is None:
-        print("missing protein: -p/--protein", file=sys.stderr)
-        return FAIL
-    if args.ref_ligand is None and args.center is None:
-        print("give the box centre with --center x y z or --ref_ligand: detecting ligands "
-              "in the PDB is not yet ported to pharmaconet_tpu_torch", file=sys.stderr)
+    if args.pdb is None and args.protein is None:
+        print("missing protein: --pdb or -p/--protein", file=sys.stderr)
         return FAIL
 
     from pharmaconet_tpu_torch.module import PharmacoNet
     from pharmaconet_tpu_torch.pharmacophore.model import PharmacophoreModel
     from pharmaconet_tpu_torch.utils import visualize
+    from pharmaconet_tpu_torch.utils.rcsb import download_pdb, parse_pdb
 
-    protein_path = args.protein
-    assert os.path.exists(protein_path), protein_path
-    prefix = args.prefix or Path(protein_path).stem
+    prefix = args.prefix or args.pdb or Path(args.protein).stem
     save_dir = Path(args.out_dir) if args.out_dir else Path("./result") / prefix
     save_dir.mkdir(exist_ok=True, parents=True)
 
+    if args.pdb is not None:
+        protein_path = str(save_dir / f"{prefix}.pdb")
+        if not os.path.exists(protein_path):
+            logging.info(f"Download {args.pdb} to {protein_path}")
+            if not download_pdb(args.pdb, protein_path):
+                print(f"download of {args.pdb} failed", file=sys.stderr)
+                return FAIL
+    else:
+        protein_path = args.protein
+        assert os.path.exists(protein_path), protein_path
+    logging.info(f"Load {protein_path}")
+
+    module = None  # built once, at the first site that is not cached
+
+    def run_pmnet(filename, ligand_path=None, center=None) -> PharmacophoreModel:
+        nonlocal module
+        model_path = save_dir / f"{filename}.{args.suffix}"
+        if (not args.force) and model_path.exists():
+            logging.warning(f"Modeling pass - {model_path} exists")
+            model = PharmacophoreModel.load(str(model_path))
+        else:
+            if module is None:
+                module = PharmacoNet(weight_path=args.weight_path,
+                                     matmul_precision=args.precision,
+                                     segmentation_precision=args.segmentation_precision,
+                                     device=args.device, verbose=args.verbose)
+                logging.info("Load PharmacoNet finish")
+            model = module.run(protein_path, ref_ligand_path=ligand_path, center=center)
+            model.save(str(model_path))
+            logging.info(f"Save pharmacophore model to {model_path}")
+        written = visualize.visualize_single(model, protein_path, ligand_path, prefix,
+                                             str(save_dir / f"{filename}_pymol.pse"))
+        logging.info(f"Save visualization to {written}")
+        return model
+
+    def run_site(inform) -> PharmacophoreModel:
+        return run_pmnet(f"{prefix}_{inform.pdbchain}_{inform.id}_model", inform.file_path,
+                         inform.center)
+
     if args.ref_ligand is not None:
         assert os.path.exists(args.ref_ligand), args.ref_ligand
-        filename, center = f"{prefix}_{Path(args.ref_ligand).stem}_model", None
-    else:
+        run_pmnet(f"{prefix}_{Path(args.ref_ligand).stem}_model", ligand_path=args.ref_ligand)
+        return SUCCESS
+
+    if args.center is not None:
         assert len(args.center) == 3, "--center takes 3 coordinates"
         x, y, z = args.center
-        filename, center = f"{prefix}_{x}_{y}_{z}_model", (x, y, z)
+        run_pmnet(f"{prefix}_{x}_{y}_{z}_model", center=(x, y, z))
+        return SUCCESS
 
-    model_path = save_dir / f"{filename}.{args.suffix}"
-    if (not args.force) and model_path.exists():
-        logging.warning(f"Modeling pass - {model_path} exists")
-        model = PharmacophoreModel.load(str(model_path))
-    else:
-        module = PharmacoNet(weight_path=args.weight_path, matmul_precision=args.precision,
-                             segmentation_precision=args.segmentation_precision,
-                             device=args.device, verbose=args.verbose)
-        logging.info("Load PharmacoNet finish")
-        logging.info(f"Load {protein_path}")
-        model = module.run(protein_path, ref_ligand_path=args.ref_ligand, center=center)
-        model.save(str(model_path))
-        logging.info(f"Save pharmacophore model to {model_path}")
-    written = visualize.visualize_single(model, protein_path, args.ref_ligand, prefix,
-                                         str(save_dir / f"{filename}_pymol.pse"))
-    logging.info(f"Save visualization to {written}")
+    informs = parse_pdb(prefix, protein_path, save_dir)
+    if not informs:
+        logging.warning("No ligand detected — enter the binding-site center:")
+        center = _ask_center()
+        if center is None:
+            print("no ligand detected and no centre given: pass --center x y z or --ref_ligand",
+                  file=sys.stderr)
+            return FAIL
+        x, y, z = center
+        run_pmnet(f"{prefix}_{x}_{y}_{z}_model", center=center)
+        return SUCCESS
+
+    if args.all:
+        logging.info("Use all binding sites (-a | --all)")
+        model_dict = {f"{prefix}_{i.pdbchain}_{i.id}": (run_site(i), i.file_path)
+                      for i in informs}
+        written = visualize.visualize_multiple(model_dict, protein_path, prefix,
+                                               str(save_dir / f"{prefix}.pse"))
+        logging.info(f"Save combined visualization to {written}")
+        return SUCCESS
+
+    text = "\n\n".join(str(i) for i in informs)
+    logging.info(f"A total of {len(informs)} ligand(s) detected!\n{text}\n")
+
+    if args.ligand_id is not None or args.chain is not None:
+        informs = [
+            i for i in informs
+            if (args.ligand_id is None or args.ligand_id.upper() == i.id)
+            and (args.chain is None or args.chain.upper() in (i.pdbchain, i.authchain))
+        ]
+        if not informs:
+            logging.warning("No matching pattern!")
+            return FAIL
+
+    if len(informs) == 1:
+        run_site(informs[0])
+        return SUCCESS
+
+    inform_by_order = {str(i.order): i for i in informs}
+    logging.info("Select ligand number(s) (e.g. 1 ; 1,3 ; all ; exit)")
+    while True:
+        try:
+            answer = input("ligand number: ").strip()
+        except EOFError:
+            return EXIT
+        if answer in ("all", "exit"):
+            break
+        if all(n.strip() in inform_by_order for n in answer.split(",")):
+            break
+        logging.warning(f"Invalid selection: {answer}")
+    if answer == "exit":
+        return EXIT
+    selected = informs if answer == "all" else [inform_by_order[n.strip()]
+                                                for n in answer.split(",")]
+    for inform in selected:
+        run_site(inform)
     return SUCCESS
 
 

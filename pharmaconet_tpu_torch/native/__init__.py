@@ -1,4 +1,5 @@
-"""Native host runtime: the screening packers, prep, prune and DFS (ctypes).
+"""Native host runtime (ctypes): the screening packers, prep, prune and DFS,
+and the docking proxies' SMILES featurizer.
 
 The C++ sources sit beside this file. Each library is compiled with g++ at
 first use into `pharmaconet_tpu_torch/_build/` (named by a hash of its
@@ -181,4 +182,17 @@ def get_pack_tiled():
         _f32p, _f32p, _i32p, _f32p,  # gtab, aux, uv, pos_blocks
         _f32p, _i32p, _i64p, _i64p,  # pair_threshold, pair_meta, pair_end_rows, pair_slices
         _i64p,  # out [4]
+    ])
+
+
+def get_smi2graph():
+    """The smi2graph_batch symbol (native/smi_graph.cpp): SMILES -> proxy
+    ligand-graph arrays for a whole batch in one call."""
+    lib = _load("smi_graph", "smi_graph.cpp")
+    return _configure(lib.smi2graph_batch, ctypes.c_int32, [
+        ctypes.c_char_p, _i64p, ctypes.c_int32,  # text, offsets, n_mols
+        _i32p, _f32p,  # atom_class, atom_features
+        _i32p, _i32p, _i32p, _f32p,  # edge_src/dst/class, edge_features
+        _i64p, _i64p, np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS"),  # offsets, status
+        ctypes.c_int64, ctypes.c_int64, _i64p,  # cap_v, cap_e, out
     ])

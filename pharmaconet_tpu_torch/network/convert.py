@@ -75,16 +75,18 @@ _LEAF_NAMES = {
 }
 
 
-def _flax_module_path(name: str) -> tuple[str, ...]:
-    for pattern, repl in _MODULE_RULES:
+def _flax_module_path(name: str, rules=_MODULE_RULES) -> tuple[str, ...]:
+    for pattern, repl in rules:
         name = re.sub(pattern, repl, name)
     return tuple(p for p in name.split(".") if p)
 
 
-def flax_layout(model: nn.Module) -> dict[str, tuple[tuple[str, ...], str]]:
+def flax_layout(model: nn.Module, rules=_MODULE_RULES) -> dict[str, tuple[tuple[str, ...], str]]:
     """{state-dict key: (flax path, rule)} with rule 'dense', 'conv' or
     'same', for the whole network or any of its modules (paths relative to
-    the flax module of the same name)."""
+    the flax module of the same name). `rules` rewrite a torch module path
+    into the flax one (the network's by default; the docking proxies pass
+    their own). A tensor of another module type keeps its name as leaf."""
     out: dict[str, tuple[tuple[str, ...], str]] = {}
     for mname, module in model.named_modules():
         local = list(module.named_parameters(recurse=False)) + [
@@ -93,7 +95,7 @@ def flax_layout(model: nn.Module) -> dict[str, tuple[tuple[str, ...], str]]:
         ]
         for pname, _ in local:
             key = f"{mname}.{pname}" if mname else pname
-            path = _flax_module_path(mname)
+            path = _flax_module_path(mname, rules)
             if isinstance(module, (nn.Linear, nn.Conv3d)):
                 rule = "same" if pname == "bias" else ("dense" if isinstance(module, nn.Linear)
                                                          else "conv")
@@ -102,7 +104,8 @@ def flax_layout(model: nn.Module) -> dict[str, tuple[tuple[str, ...], str]]:
                     path, leaf = path[:-1], "qkv_kernel"
                 out[key] = ((*path, leaf), rule)
             else:
-                out[key] = ((*path, _LEAF_NAMES[type(module)][pname]), "same")
+                leaf = _LEAF_NAMES.get(type(module), {}).get(pname, pname)
+                out[key] = ((*path, leaf), "same")
     return out
 
 
@@ -130,13 +133,14 @@ def _meta_model(config: dict) -> nn.Module:
         return build_model(**config)
 
 
-def torch_state_from_flax(module: nn.Module, tree: dict) -> dict[str, torch.Tensor]:
+def torch_state_from_flax(module: nn.Module, tree: dict,
+                          rules=_MODULE_RULES) -> dict[str, torch.Tensor]:
     """The state dict of `module` from the flax tree of its counterpart
     (numpy leaves). Raises when a tensor is missing, has another shape, or
     a flax leaf is left over."""
     shapes = {k: tuple(v.shape) for k, v in module.state_dict().items()}
     out: dict[str, torch.Tensor] = {}
-    for key, (path, rule) in flax_layout(module).items():
+    for key, (path, rule) in flax_layout(module, rules).items():
         node: Any = tree
         for part in path:
             node = node[part]

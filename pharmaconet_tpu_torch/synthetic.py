@@ -387,3 +387,34 @@ def write_synthetic_pocket(
     lines.append("END")
     Path(path).write_text("\n".join(lines) + "\n")
     return {"center": tuple(float(v) for v in c), "num_atoms": serial, "num_residues": resseq}
+
+
+def append_het_ligands(
+    path: str | Path,
+    ligands: list[tuple[str, str, int, tuple[float, float, float]]],
+    names: dict[str, str] | None = None,
+) -> None:
+    """Adds HET ligands to a PDB written by `write_synthetic_pocket`, for
+    ligand detection (`utils.rcsb.parse_pdb`): each (het id, chain, residue
+    number, centre) gets a HET record (and a HETNAM record from `names`) in
+    the header and HETATM records before END: 'HOH' one oxygen at the
+    centre, any other id a planar ring of five carbons and one oxygen,
+    1.25 A around it."""
+    header, atoms = [], []
+    serial = sum(1 for line in Path(path).read_text().splitlines() if line.startswith("ATOM"))
+    for het_id, chain, resseq, center in ligands:
+        if het_id == "HOH":
+            elements, coords = ["O"], [center]
+        else:
+            elements = ["C"] * 5 + ["O"]
+            coords = [(center[0] + 1.25 * np.cos(a), center[1] + 1.25 * np.sin(a), center[2])
+                      for a in np.arange(6) * np.pi / 3]
+        header.append(f"HET    {het_id:>3s}  {chain}{resseq:4d}  {len(elements):5d}")
+        for i, (element, (x, y, z)) in enumerate(zip(elements, coords)):
+            serial += 1
+            atoms.append(f"HETATM{serial:5d} {element + str(i + 1):<4s}{het_id:>4s} {chain}"
+                         f"{resseq:4d}    {x:8.3f}{y:8.3f}{z:8.3f}  1.00  0.00          "
+                         f"{element:>2s}")
+    header += [f"HETNAM     {k:>3s} {v}" for k, v in (names or {}).items()]
+    body = [line for line in Path(path).read_text().splitlines() if line != "END"]
+    Path(path).write_text("\n".join(header + body + atoms + ["END"]) + "\n")

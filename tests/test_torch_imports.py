@@ -85,6 +85,11 @@ def test_every_module_imports_without_jax_and_builds_nothing():
         "chem.smiles", "chem.fragments", "chem.embed", "scoring.parse_pool", "scoring.library",
         "scoring.ligand", "pharmacophore.model")}
     assert smiles <= names, smiles - names
+    features_and_proxies = {f"pharmaconet_tpu_torch.{m}" for m in (
+        "api", "cli.feature_extraction", "utils.rcsb", "network.necks", "proxy", "proxy.data",
+        "proxy.gnn", "proxy.convert", "proxy.tacogfn", "proxy.sbddreward", "proxy.base",
+        "proxy.proxies")}
+    assert features_and_proxies <= names, features_and_proxies - names
 
 
 def test_cuda_without_card_raises():

@@ -429,10 +429,27 @@ def test_cli_ref_ligand_centres_the_box(case, port, small_cli, tmp_path):
 
 @pytest.mark.parametrize("extra", [["--pdb", "6OIM"], ["--shard"], ["--profile", "trace"], []],
                          ids=["pdb", "shard", "profile", "no-center"])
-def test_cli_unported_options_exit_2(case, small_cli, tmp_path, extra, capsys):
+def test_cli_unported_options_exit_2(case, small_cli, tmp_path, extra, capsys, monkeypatch):
+    """--shard and --profile are not yet ported; --pdb whose download fails
+    (the fetch is stubbed to fail: nothing is downloaded in tests) and a
+    PDB with no ligand and no centre given (stdin closed) exit 2 too, all
+    before a network is built."""
+    import builtins
+    import urllib.request
+
+    def no_fetch(*a, **k):
+        raise OSError("no network in tests")
+
+    def closed_stdin(prompt=""):
+        raise EOFError
+
+    monkeypatch.setattr(urllib.request, "urlopen", no_fetch)
+    monkeypatch.setattr(builtins, "input", closed_stdin)
     argv = ["-p", str(case.pdb), "--out_dir", str(tmp_path), "--device", "cpu", *extra]
     if extra:
         argv += ["--center", "1", "2", "3"]
     assert _cli(argv) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    want = {"pdb": "download of 6OIM failed", "no-center": "no ligand detected"}.get(
+        extra[0].lstrip("-") if extra else "no-center", "not yet ported")
+    assert want in capsys.readouterr().err
     assert small_cli == []
