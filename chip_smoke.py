@@ -88,6 +88,26 @@ Phases, in order; any failure exits non-zero:
                (--ligand_id, --all) against --ref_ligand on the ligand file
                it wrote; K6's launch count reset just before and read just
                after every path: once per pocket; one {"proxy": ...} line
+ 11. train   — serving at scale and training at full width: both float32
+               proxies of phase 10 (16-hotspot caches) behind
+               ShardedProxyScorer on [cuda:0], scoring_iter over 8192
+               fragment SMILES in batches of 2048 against a loop of
+               scoring_list (scores against the largest reference value,
+               molecules/s and the idle share of each); ShardedCacheBuilder
+               over phase 10's 3 pockets and a missing file, equal to the
+               serial get_cache_database element by element, pockets/s of
+               each; the affinity-head Trainer at the published widths
+               (hidden 128, 4 convolutions) on phase 7's trunk and
+               checkpoint over 8 synthetic pockets (seeds 0-7) x 64 fragment
+               SMILES, 6 iterations of batch 4 with centre noise 3 A: finite
+               losses, K6 once per item fetched, one step on the card against
+               the CPU, resume then one step against the uninterrupted run,
+               last.npz reloaded, s per iteration, the item split, the step's
+               busy ms and idle share, peak memory; the detector's train
+               step at the published width on make_dummy_batch(2, 64, 16),
+               5 steps (ms per step, peak memory, the profiler's split) and
+               one micro step on the card against the CPU; one {"train": ...}
+               line
 Then prints the {"kernels": [...]} line, the nvidia-smi name/power line, and
 last {"ok": true, "device": {...}}. A kernel's `ms` is one call between two
 CUDA events (host work included), `stream_ms` its time per call back to
@@ -99,12 +119,16 @@ timers, same rounds), `bit_equal_to_baseline`, and `occupancy` /
 per block and blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor;
 K6's `occupancy` per kernel of its two launches). K1-K3 add their launch
 counts on the 12-conformer routes, K6 `launches_proxy` (phase 10's total)
-and `launches_proxy_paths` (per path).
+and `launches_proxy_paths` (per path), `launches_train` and
+`launches_train_paths` (phase 11's).
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -1332,9 +1356,9 @@ def host_s(fn, reps: int = 3):
 
 
 class Checks:
-    """Phase 10's comparisons: every one runs and is recorded (largest
-    difference, largest reference magnitude); `raise_misses` fails the phase
-    on any miss at its end, so one run shows every disagreement.
+    """Phases 10's and 11's comparisons: every one runs and is recorded
+    (largest difference, largest reference magnitude); `raise_misses` fails
+    the phase on any miss at its end, so one run shows every disagreement.
 
     Two forms. Element by element (`np.allclose`) where both sides run the
     same kernels in the same order (fused vs unfused, solo vs batched, the
@@ -1345,7 +1369,8 @@ class Checks:
     random-init TacoGFN sums pair energies of thousands into scores near
     zero. Both forms are recorded (`elementwise`)."""
 
-    def __init__(self):
+    def __init__(self, phase: str):
+        self.phase = phase
         self.misses: list[str] = []
         self.seen: dict[str, dict] = {}
 
@@ -1378,7 +1403,7 @@ class Checks:
 
     def raise_misses(self) -> None:
         if self.misses:
-            raise AssertionError("phase 10 misses:\n  " + "\n  ".join(self.misses))
+            raise AssertionError(f"{self.phase} misses:\n  " + "\n  ".join(self.misses))
 
 
 def proxy_split(proxy, cache, smiles: list[str]) -> dict:
@@ -1434,7 +1459,7 @@ def phase_proxy(dev, kernels: dict, card: str) -> dict:
 
     out: dict = {"card": card}
     k6: dict[str, int] = {}
-    check = Checks()
+    check = Checks("phase 10")
     pockets = []
     for seed in range(3):
         pdb = WORK / f"proxy_pocket{seed}.pdb"
@@ -1607,6 +1632,398 @@ def phase_proxy(dev, kernels: dict, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 11: serving at scale and training
+# --------------------------------------------------------------------------
+SERVE_N, SERVE_BATCH = 8192, 2048
+TRAIN_POCKETS, TRAIN_LIGANDS, TRAIN_SEED = 8, 64, 5
+DETECTOR_BATCH, DETECTOR_TOKENS, DETECTOR_STEPS = 2, 16, 5
+MICRO = dict(embed_dim=8, depths=(1, 1), num_heads=(1, 2), window=2, token_feature_dim=16)
+# one step on the card against the CPU from the same parameters and inputs:
+# the loss within rtol 1e-5; the gradients no further from the CPU's float64
+# gradient than STEP_GRAD_FACTOR times the CPU's own float32 gradient is
+# (the worst leaf of each, relative to the leaf's largest entry), plus
+# 1e-6: both sum in f32 in different orders (the card with atomics in
+# index_add_ and the gathers' backward), and how far that moves a gradient
+# depends on how much its terms cancel, which the float64 run measures;
+# after the update, parameters within 1e-6 where the gradient is settled
+# (at least 1e-3 of its leaf's largest and 1e-6). Adam's first step moves
+# every entry by lr * g / (|g| + eps), about lr whatever |g|, so an entry
+# whose gradient is rounding noise may move either way: those are counted,
+# not held.
+STEP_LOSS_RTOL, STEP_GRAD_FACTOR, STEP_PARAM_TOL = 1e-5, 10.0, 1e-6
+
+
+def as_float64(tree):
+    """Floating tensors of a (nested) tuple/list as float64; the rest as is."""
+    if isinstance(tree, torch.Tensor):
+        return tree.double() if tree.is_floating_point() else tree
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(as_float64(t) for t in tree)
+    return tree
+
+
+def worst_leaf_rel(grads: dict, ref: dict) -> float:
+    """The largest |grads - ref| of any leaf over that leaf's largest |ref|."""
+    worst = 0.0
+    for key, r in ref.items():
+        if r is not None and grads[key] is not None and float(r.abs().max()) > 0:
+            worst = max(worst, float((grads[key].detach().cpu().double() - r).abs().max())
+                        / float(r.abs().max()))
+    return worst
+
+
+def max_param_diff(a: torch.nn.Module, b: torch.nn.Module) -> float:
+    return max(float((p.detach().cpu() - q.detach().cpu()).abs().max())
+               for (_, p), (_, q) in zip(a.named_parameters(), b.named_parameters(), strict=True))
+
+
+def step_card_vs_cpu(check: Checks, name: str, card: tuple, cpu: tuple, ref: dict) -> dict:
+    """card, cpu: (loss, {name: grad}, model after one step from fresh
+    optimizer state); ref: the CPU's float64 gradients from the same
+    parameters. Holds them as STEP_* says; returns the differences."""
+    (loss_d, grads_d, model_d), (loss_h, grads_h, model_h) = card, cpu
+    check.close(f"{name} loss card vs CPU", loss_d, loss_h, rtol=STEP_LOSS_RTOL, atol=0.0)
+    for key, gh in grads_h.items():
+        check.true(f"{name} gradient {key}", (gh is None) == (grads_d[key] is None),
+                   "reached on one device only")
+    card_rel, cpu_rel = worst_leaf_rel(grads_d, ref), worst_leaf_rel(grads_h, ref)
+    check.true(f"{name} gradients card vs float64",
+               card_rel <= STEP_GRAD_FACTOR * cpu_rel + 1e-6,
+               f"card {card_rel:.3g}, CPU float32 {cpu_rel:.3g} of a leaf's largest")
+    params_d, params_h = dict(model_d.named_parameters()), dict(model_h.named_parameters())
+    settled_diff, unsettled = 0.0, 0
+    for key, gh in grads_h.items():
+        if gh is None:
+            continue
+        settled = gh.abs() >= max(1e-3 * float(gh.abs().max()), 1e-6)
+        diff = (params_d[key].detach().cpu() - params_h[key].detach()).abs()
+        if settled.any():
+            settled_diff = max(settled_diff, float(diff[settled].max()))
+        unsettled += int((~settled).sum())
+    check.true(f"{name} settled parameters card vs CPU", settled_diff <= STEP_PARAM_TOL,
+               f"{settled_diff:.3g} apart")
+    return dict(loss=[loss_d, loss_h], grad_rel_card_vs_f64=card_rel,
+                grad_rel_cpu_f32_vs_f64=cpu_rel, grad_rel_card_vs_cpu=worst_leaf_rel(
+                    grads_d, {k: None if g is None else g.double() for k, g in grads_h.items()}),
+                settled_param_max_diff=settled_diff, unsettled_entries=unsettled,
+                param_max_diff=max_param_diff(model_d, model_h))
+
+
+def phase_serve(dev, ckpt: Path, pockets: list, check: Checks, k6: dict) -> dict:
+    """Both float32 proxies of phase 10 (16-hotspot caches) behind
+    ShardedProxyScorer on [cuda:0]: scoring_iter over 8192 fragment SMILES
+    in batches of 2048 against a loop of scoring_list; then
+    ShardedCacheBuilder over phase 10's 3 pockets and a missing file
+    against the serial get_cache_database."""
+    from pharmaconet_tpu_torch import api
+    from pharmaconet_tpu_torch.chem.fragments import enumerate_fragment_smiles
+    from pharmaconet_tpu_torch.parallel.proxy import ShardedCacheBuilder, ShardedProxyScorer
+    from pharmaconet_tpu_torch.proxy.proxies import SBDDReward_Proxy, TacoGFN_Proxy
+
+    out: dict = {}
+    net = api.get_pmnet_dev(device=dev, weight_path=ckpt)
+    pdb, center = pockets[0]
+    (feats, infos), k6["serve_feature_extraction"] = k6_count(
+        lambda: net.feature_extraction(pdb, center=center))
+    once_per_pocket("phase 11 feature_extraction", k6["serve_feature_extraction"])
+    smiles = [s for _, s in enumerate_fragment_smiles(SERVE_N, seed=SMILES_SEED)]
+    batches = [smiles[i:i + SERVE_BATCH] for i in range(0, SERVE_N, SERVE_BATCH)]
+    info = {f"pocket{i}": p for i, p in enumerate(pockets[:3])}
+    info["missing"] = (WORK / "absent.pdb", center)
+    for name, cls in (("TacoGFN", TacoGFN_Proxy), ("SBDDReward", SBDDReward_Proxy)):
+        res: dict = {}
+        proxy = cls(device=dev)
+        proxy._init_random(PROXY_SEEDS[name])
+        proxy.pmnet = net
+        proxy.put_cache("target", proxy._get_cache(feats, infos[:PROXY_HOTSPOTS]))
+        scorer = ShardedProxyScorer(proxy, mesh=[dev])
+
+        def loop():
+            return [proxy.scoring_list("target", b) for b in batches]
+
+        def stream():
+            return list(scorer.scoring_iter("target", smiles, batch_size=SERVE_BATCH))
+
+        want = np.concatenate(loop())  # also the warm-up
+        got = stream()
+        check.true(f"{name} scoring_iter batches", [len(c) for c in got] == [SERVE_BATCH] * 4,
+                   f"lengths {[len(c) for c in got]}")
+        res["scoring_iter_vs_scoring_list_max_abs_err"] = check.close(
+            f"{name} scoring_iter vs scoring_list", np.concatenate(got), want, scaled=True)
+        _, t_loop = host_s(loop)
+        _, t_iter = host_s(stream)
+        res.update(scoring_list_mol_per_s=SERVE_N / t_loop, scoring_iter_mol_per_s=SERVE_N / t_iter,
+                   speedup=t_loop / t_iter, scoring_list_busy=device_busy(loop),
+                   scoring_iter_busy=device_busy(stream))
+
+        builder = ShardedCacheBuilder(proxy, mesh=[dev])
+        serial, k6[f"{name}_serial_database"] = k6_count(
+            lambda: proxy.get_cache_database(dict(info), verbose=False))
+        sharded, k6[f"{name}_sharded_database"] = k6_count(
+            lambda: builder.get_cache_database(dict(info), verbose=False))
+        once_per_pocket(f"{name} serial database", k6[f"{name}_serial_database"], 3)
+        once_per_pocket(f"{name} ShardedCacheBuilder", k6[f"{name}_sharded_database"], 3)
+        check.true(f"{name} database keys", sorted(sharded) == sorted(serial) == sorted(info)[1:],
+                   f"sharded {sorted(sharded)}, serial {sorted(serial)}")
+        for key in set(serial) & set(sharded):
+            check.close(f"{name} ShardedCacheBuilder {key} vs serial", sharded[key], serial[key],
+                        rtol=0.0, atol=0.0)
+        _, t_serial = host_s(lambda: proxy.get_cache_database(dict(info), verbose=False), reps=2)
+        _, t_sharded = host_s(lambda: builder.get_cache_database(dict(info), verbose=False),
+                              reps=2)
+        res.update(serial_pockets_per_s=3 / t_serial, sharded_pockets_per_s=3 / t_sharded)
+        out[name] = res
+        log(f"  {name}: scoring_iter {res['scoring_iter_mol_per_s']:.0f} molecules/s against "
+            f"scoring_list {res['scoring_list_mol_per_s']:.0f} ({res['speedup']:.3f}x), idle "
+            f"{res['scoring_iter_busy']['idle_share']:.3f} against "
+            f"{res['scoring_list_busy']['idle_share']:.3f}; ShardedCacheBuilder "
+            f"{res['sharded_pockets_per_s']:.3f} pockets/s against serial "
+            f"{res['serial_pockets_per_s']:.3f} (K6 once per good pocket)")
+        del proxy, scorer, builder
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_files(root: Path) -> Path:
+    """8 synthetic pockets (seeds 0-7), 64 fragment SMILES each with seeded
+    affinities in [-12, 0], and the trainer's config files; returns the
+    config path's directory."""
+    from pharmaconet_tpu_torch.chem.fragments import enumerate_fragment_smiles
+    from pharmaconet_tpu_torch.synthetic import write_synthetic_pocket
+
+    (root / "proteins").mkdir(parents=True)
+    rng = np.random.default_rng(TRAIN_SEED)
+    frags = [s for _, s in enumerate_fragment_smiles(TRAIN_POCKETS * TRAIN_LIGANDS,
+                                                      seed=TRAIN_SEED)]
+    lines, ligands = [], {}
+    for i in range(TRAIN_POCKETS):
+        center = write_synthetic_pocket(root / "proteins" / f"pocket{i}.pdb", seed=i)["center"]
+        lines.append(",".join([f"pocket{i}", *map(str, center)]))
+        ligands[f"pocket{i}"] = [(f"l{j}", frags[i * TRAIN_LIGANDS + j],
+                                  float(rng.uniform(-12, 0))) for j in range(TRAIN_LIGANDS)]
+    (root / "info.csv").write_text("\n".join(lines))
+    (root / "codes.txt").write_text("\n".join(f"pocket{i}" for i in range(TRAIN_POCKETS)))
+    with open(root / "ligands.pkl", "wb") as f:
+        pickle.dump(ligands, f)
+    return root
+
+
+def train_config(root: Path):
+    from pharmaconet_tpu_torch.training import Config
+
+    config = Config()
+    config.log_dir = str(root / "log")
+    config.data.protein_info_path = str(root / "info.csv")
+    config.data.train_protein_code_path = str(root / "codes.txt")
+    config.data.protein_dir = str(root / "proteins")
+    config.data.ligand_path = str(root / "ligands.pkl")
+    config.model.hidden_dim, config.model.ligand_num_convs = 128, 4
+    t = config.train
+    t.batch_size, t.split_ratio, t.center_noise, t.max_iterations = 4, 0.75, 3.0, 6
+    t.val_every = t.save_every = 3
+    t.log_every = t.print_every = 1
+    return config
+
+
+def phase_trainer(dev, ckpt: Path, check: Checks, k6: dict) -> dict:
+    """The affinity-head trainer at the published widths (hidden 128, 4
+    convolutions) on the full-width trunk: fit over 8 pockets, then one
+    step on the card against the CPU, resume then one step against the
+    uninterrupted run, and last.npz reloaded."""
+    from pharmaconet_tpu_torch import api
+    from pharmaconet_tpu_torch.ops import voxelize_cuda
+    from pharmaconet_tpu_torch.training import Trainer
+    from pharmaconet_tpu_torch.training.convert import load_checkpoint
+    from pharmaconet_tpu_torch.training.train_step import apply_updates
+
+    root = train_files(WORK / "train")
+    config = train_config(root)
+    net = api.get_pmnet_dev(device=dev, weight_path=ckpt)
+    np.random.seed(TRAIN_SEED)  # the centre-noise draws
+    trainer = Trainer(config, pmnet=net, device=dev)
+    voxelize_cuda.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k6["trainer_fit"] = voxelize_cuda.LAUNCHES["voxelize_pallas"]
+    timings = trainer.train_dataset.timings + trainer.val_dataset.timings
+    once_per_pocket("trainer fit (per item fetched)", k6["trainer_fit"], len(timings))
+    records = [json.loads(x) for x in (trainer.log_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = {k: [r[k] for r in records if k in r] for k in ("train/loss", "valid/loss")}
+    check.true("trainer losses", len(losses["train/loss"]) == 6 and len(losses["valid/loss"]) == 2
+               and bool(np.isfinite(losses["train/loss"] + losses["valid/loss"]).all()),
+               f"losses {losses}")
+    for name in ("best.npz", "last.npz", "resume.ckpt"):
+        check.true(f"trainer {name}", (trainer.save_dir / name).exists(), "missing")
+    out = dict(
+        iterations=6, wall_s=wall, s_per_iteration=wall / 6, items_fetched=len(timings),
+        step_s=statistics.median(r["train/time"] for r in records if "train/time" in r),
+        item_split_s={k: statistics.median(t[k] for t in timings) for k in timings[0]},
+        peak_memory_gib=torch.cuda.max_memory_allocated(dev) / 2**30, losses=losses)
+
+    # last.npz reloads and predicts the same (before any further step)
+    items, k6["trainer_check_items"] = k6_count(
+        lambda: [trainer.train_dataset[i] for i in range(2)])
+    once_per_pocket("trainer items", k6["trainer_check_items"], 2)
+    out["hotspots"] = [int(i.hotspot_valid.sum()) for i in items]
+    model = copy.deepcopy(trainer.model)
+    model.load_state_dict(load_checkpoint(trainer.save_dir / "last.npz", model))
+    with torch.no_grad():
+        got = model(*items[0].model_args(dev)).cpu().numpy()
+        want = trainer.model(*items[0].model_args(dev)).cpu().numpy()
+    out["last_npz_max_abs_err"] = check.close("last.npz reloaded predicts the same", got, want)
+
+    # one step on the card against the CPU, same items and parameters
+    cpu = torch.device("cpu")
+    card_twin, cpu_twin = copy.deepcopy(trainer.model), copy.deepcopy(trainer.model).to(cpu)
+    cpu_items = [dataclasses.replace(i, multi_scale_features=[f.cpu() for f in
+                                                              i.multi_scale_features])
+                 for i in items]
+    ref_twin = copy.deepcopy(cpu_twin).double()
+    ref_params = dict(ref_twin.named_parameters())
+    ref_loss = torch.stack([ref_twin.loss(*as_float64(i.loss_args(cpu)))
+                            for i in cpu_items]).mean()
+    ref = dict(zip(ref_params, torch.autograd.grad(ref_loss, list(ref_params.values()),
+                                                   allow_unused=True)))
+    steps = []
+    for twin, its, d in ((card_twin, items, dev), (cpu_twin, cpu_items, cpu)):
+        loss, grads = trainer._loss_and_grads(its, twin, d)
+        params = dict(twin.named_parameters())
+        updates, _ = trainer.optimizer.update(grads, trainer.optimizer.init(params))
+        apply_updates(params, updates)
+        steps.append((float(loss), grads, twin))
+    out["step_card_vs_cpu"] = step_card_vs_cpu(check, "trainer step", *steps, ref)
+
+    # resume from resume.ckpt (iteration 6), then one step, against the run
+    # that went on uninterrupted
+    resumed = Trainer(config, pmnet=net, device=dev)
+    check.true("restore_state", resumed.restore_state(trainer.save_dir / "resume.ckpt")[0] == 6,
+               "not iteration 6")
+    trainer._train_step(items)
+    resumed._train_step(items)
+    out["resume_max_param_diff"] = max_param_diff(trainer.model, resumed.model)
+    out["item_timings_s"] = timings
+    check.true("resume then one step", out["resume_max_param_diff"] <= STEP_PARAM_TOL,
+               f"parameters {out['resume_max_param_diff']} apart")
+    resumed.close()
+
+    out["step_busy"] = device_busy(lambda: trainer._train_step(items), top=6)
+    trainer.close()
+    log(f"  trainer: 6 iterations in {wall:.3f} s ({out['s_per_iteration']:.3f} s per "
+        f"iteration, median step {out['step_s'] * 1e3:.1f} ms host), {len(timings)} items "
+        f"fetched (K6 once each); item split (s, median) {out['item_split_s']}; peak "
+        f"{out['peak_memory_gib']:.2f} GiB; losses {losses}")
+    log(f"    step on the card (torch.profiler, 2 items): {out['step_busy']}; card vs CPU "
+        f"{out['step_card_vs_cpu']}, resume {out['resume_max_param_diff']:.3g}, last.npz "
+        f"{out['last_npz_max_abs_err']:.3g}")
+    return out
+
+
+def phase_detector(dev, check: Checks) -> dict:
+    """The detector's train step at the published architecture (33 x 64^3,
+    embed 96, depths 2/6/2/2; the synthesized checkpoint) on
+    make_dummy_batch(2, 64, 16), 5 steps; one step at the micro widths on
+    the card against the CPU."""
+    from pharmaconet_tpu_torch.module import precision_scope
+    from pharmaconet_tpu_torch.network.convert import synthesize_torch_state_dict
+    from pharmaconet_tpu_torch.network.model import build_model
+    from pharmaconet_tpu_torch.training import train_step
+
+    model = build_model()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           synthesize_torch_state_dict(CKPT_SEED, CKPT_SCALE).items()})
+    model.to(dev)
+    step = train_step.make_train_step(model, train_step.make_optimizer())
+    batch = train_step.make_dummy_batch(DETECTOR_BATCH, 64, DETECTOR_TOKENS, seed=0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [], []
+    for _ in range(DETECTOR_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    check.true("detector losses", bool(np.isfinite(losses).all()), f"losses {losses}")
+    out = dict(losses=losses, step_ms=times, ms_per_step=statistics.median(times[1:]),
+               peak_memory_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+               step_busy=device_busy(lambda: step(batch), top=8))
+    del model, step
+    torch.cuda.empty_cache()
+
+    torch.manual_seed(0)
+    cpu_model = train_step.all_tensors_trainable(build_model(image_size=8, **MICRO))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    small = train_step.make_dummy_batch(2, 8, 4)
+    optimizer = train_step.make_optimizer()
+    ref_model = copy.deepcopy(cpu_model).double()
+    ref_params = dict(ref_model.named_parameters())
+    ref_loss = train_step.detector_loss(ref_model, {k: torch.from_numpy(v).double()
+                                                    if v.dtype.kind == "f" else torch.from_numpy(v)
+                                                    for k, v in small.items()})
+    ref = dict(zip(ref_params, torch.autograd.grad(ref_loss, list(ref_params.values()),
+                                                   allow_unused=True)))
+    steps = []
+    for model, d in ((card_model, dev), (cpu_model, torch.device("cpu"))):
+        params = dict(model.named_parameters())
+        with precision_scope("float32", d):
+            loss = train_step.detector_loss(model, {k: torch.from_numpy(v).to(d)
+                                                    for k, v in small.items()})
+            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()),
+                                                         allow_unused=True)))
+        updates, _ = optimizer.update(grads, optimizer.init(params))
+        train_step.apply_updates(params, updates)
+        steps.append((float(loss.detach()), grads, model))
+    out["micro_card_vs_cpu"] = step_card_vs_cpu(check, "detector step (micro)", *steps, ref)
+    log(f"  detector step at full width: {out['ms_per_step']:.1f} ms per step (median of steps "
+        f"2-{DETECTOR_STEPS}; all {[round(t, 1) for t in times]}), peak "
+        f"{out['peak_memory_gib']:.2f} GiB, losses {[round(x, 4) for x in losses]}; micro card "
+        f"vs CPU {out['micro_card_vs_cpu']}")
+    log(f"    one step on the card (torch.profiler): {out['step_busy']}")
+    return out
+
+
+def phase_train(dev, kernels: dict, card: str) -> dict:
+    """Serving at scale, the affinity-head trainer and the detector step on
+    the full-width trunk of phase 7; K6 counted on every path."""
+    from pharmaconet_tpu_torch.network.convert import (
+        random_distributions,
+        save_torch_checkpoint,
+        synthesize_torch_state_dict,
+    )
+    from pharmaconet_tpu_torch.synthetic import write_synthetic_pocket
+
+    out: dict = {"card": card}
+    check = Checks("phase 11")
+    k6: dict[str, int] = {}
+    ckpt = WORK / "train_ckpt.tar"
+    save_torch_checkpoint(ckpt, synthesize_torch_state_dict(CKPT_SEED, CKPT_SCALE),
+                          random_distributions(), config={"synthesized": [CKPT_SEED, CKPT_SCALE]})
+    pockets = []
+    for seed in range(3):  # phase 10's pockets
+        pdb = WORK / f"serve_pocket{seed}.pdb"
+        pockets.append((pdb, write_synthetic_pocket(pdb, seed=seed)["center"]))
+    t0 = time.perf_counter()
+    out["serve"] = phase_serve(dev, ckpt, pockets, check, k6)
+    out["serve_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["trainer"] = phase_trainer(dev, ckpt, check, k6)
+    out["trainer_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["detector"] = phase_detector(dev, check)
+    out["detector_s"] = time.perf_counter() - t0
+    out["k6_launches"] = k6
+    out["comparisons"] = check.seen
+    kernels["voxelize_pallas"]["launches_train"] = sum(k6.values())
+    kernels["voxelize_pallas"]["launches_train_paths"] = k6
+    log(f"  phase parts (host s): serve {out['serve_s']:.1f}, trainer {out['trainer_s']:.1f}, "
+        f"detector {out['detector_s']:.1f}; comparisons: {check.seen}")
+    check.raise_misses()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1644,6 +2061,8 @@ def main() -> int:
         print(json.dumps({"smiles": phase_smiles(dev, kernels, smi)}), flush=True)
         log("[10] feature extraction and the docking proxies at full width")
         print(json.dumps({"proxy": phase_proxy(dev, kernels, smi)}), flush=True)
+        log("[11] serving at scale and training at full width")
+        print(json.dumps({"train": phase_train(dev, kernels, smi)}), flush=True)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

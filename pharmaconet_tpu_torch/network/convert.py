@@ -21,6 +21,7 @@ parameters as the JAX package's `PharmacoNet._random_params`.
 
 from __future__ import annotations
 
+import io
 import re
 from pathlib import Path
 from typing import Any
@@ -128,6 +129,16 @@ def from_flax(value: np.ndarray, rule: str) -> np.ndarray:
     return value
 
 
+def to_flax(value: np.ndarray, rule: str) -> np.ndarray:
+    """Torch layout -> flax layout of one tensor (the inverse of `from_flax`)."""
+    value = np.asarray(value, dtype=np.float32)
+    if rule == "dense":
+        return np.ascontiguousarray(value.T)
+    if rule == "conv":
+        return np.ascontiguousarray(np.transpose(value, (2, 3, 4, 1, 0)))
+    return value
+
+
 def _meta_model(config: dict) -> nn.Module:
     with torch.device("meta"):
         return build_model(**config)
@@ -153,6 +164,21 @@ def torch_state_from_flax(module: nn.Module, tree: dict,
     if len(out) != leaves:
         raise ValueError(f"{leaves - len(out)} flax leaves have no place in the torch module")
     return out
+
+
+def flax_state_from_torch(module: nn.Module, state: dict,
+                          rules=_MODULE_RULES) -> dict[str, Any]:
+    """The flax tree (numpy leaves) of `module`'s counterpart from its
+    state dict: the inverse of `torch_state_from_flax`."""
+    tree: dict[str, Any] = {}
+    for key, (path, rule) in flax_layout(module, rules).items():
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        value = state[key]
+        node[path[-1]] = to_flax(value.detach().cpu().numpy() if isinstance(value, torch.Tensor)
+                                 else value, rule)
+    return tree
 
 
 def state_dict_from_flax(params: dict, config: dict | None = None) -> dict[str, torch.Tensor]:
@@ -325,6 +351,29 @@ def save_torch_checkpoint(path: str | Path, state: dict[str, np.ndarray],
         "score_distributions": {t: {"focus": np.asarray(d, dtype=np.float32)}
                                 for t, d in distributions.items()},
     }, path)
+
+
+def save_npz_checkpoint(path: str | Path, params: dict,
+                        score_distributions: dict[str, np.ndarray]) -> None:
+    """The JAX package's checkpoint format: a flat compressed .npz of the
+    flax tree ('P:' + '/'-joined path) and the score distributions ('D:' +
+    type), as `pharmaconet_tpu.network.convert.save_npz_checkpoint` writes."""
+    flat: dict[str, np.ndarray] = {}
+
+    def walk(tree, prefix):
+        for key, value in tree.items():
+            name = f"{prefix}/{key}" if prefix else key
+            if isinstance(value, dict):
+                walk(value, name)
+            else:
+                flat[f"P:{name}"] = np.asarray(value)
+
+    walk(params, "")
+    for typ, dist in score_distributions.items():
+        flat[f"D:{typ}"] = np.asarray(dist)
+    buffer = io.BytesIO()
+    np.savez_compressed(buffer, **flat)
+    Path(path).write_bytes(buffer.getvalue())
 
 
 def load_npz_checkpoint(path: str | Path) -> tuple[dict, dict[str, np.ndarray]]:

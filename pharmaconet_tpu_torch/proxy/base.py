@@ -253,7 +253,12 @@ class BaseProxy:
             return self._get_cache(features, hotspot_infos)
 
         data = self.pmnet.parse(protein_pdb_path, ref_ligand_path, center)
-        out = self.pmnet.run_trunk(data)
+        return self._cache_from_trunk(data, self.pmnet.run_trunk(data))
+
+    def _cache_from_trunk(self, data, out: dict) -> Cache:
+        """The cache from one parsed pocket's `run_trunk` outputs (on this
+        proxy's device): the kept token rows gathered on the device, their
+        positions taken on the host."""
         keep = out["keep"]
         positions = np.asarray(data.token_positions, np.float32)[
             np.nonzero(keep.cpu().numpy())[0]]

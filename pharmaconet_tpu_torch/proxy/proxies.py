@@ -42,6 +42,7 @@ class TacoGFN_Proxy(BaseProxy):
         "QVina-CrossDocked2020": "1Kjn4xNc8458Ibf-ckWjtuUotuhGFLiHK",
     }
     categorical = True
+    invalid_smiles = "raise"  # an unparseable SMILES raises ValueError
 
     def _build_model(self):
         return TacoAffinityHead(**self._model_kwargs)
@@ -81,6 +82,7 @@ class SBDDReward_Proxy(BaseProxy):
     }
     model_gdrive_link = {"UniDock_Vina-ZINC": ""}
     categorical = False
+    invalid_smiles = "zero"  # an unparseable SMILES scores 0.0
 
     def _build_model(self):
         return SBDDRewardNetwork(**self._model_kwargs)

@@ -90,6 +90,11 @@ def test_every_module_imports_without_jax_and_builds_nothing():
         "proxy.gnn", "proxy.convert", "proxy.tacogfn", "proxy.sbddreward", "proxy.base",
         "proxy.proxies")}
     assert features_and_proxies <= names, features_and_proxies - names
+    serving_and_training = {f"pharmaconet_tpu_torch.{m}" for m in (
+        "parallel", "parallel.mesh", "parallel.proxy", "training", "training.config",
+        "training.affinity_model", "training.convert", "training.dataset", "training.train_step",
+        "training.trainer")}
+    assert serving_and_training <= names, serving_and_training - names
 
 
 def test_cuda_without_card_raises():
