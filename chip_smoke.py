@@ -108,6 +108,27 @@ Phases, in order; any failure exits non-zero:
                5 steps (ms per step, peak memory, the profiler's split) and
                one micro step on the card against the CPU; one {"train": ...}
                line
+ 12. shard   — sharded screening and modeling on meshes that name cuda:0
+               one to three times (one card): ShardedScreener on [cuda:0]
+               and [cuda:0] * 2 in each live mapping (K1; native_pack=False,
+               K5 and the torch scans; the reference engine) on the
+               headline batch, and through score_stored_group on phase 6's
+               v3 (4 batches, leaf buckets) and v2 (2 batches) stores in
+               groups of 1 and 2, every score against BatchScreener and
+               each path's launch counts reset just before and read just
+               after; ligands/s of BatchScreener and both meshes, timed in
+               turns; the screening CLI with its mesh function patched to
+               [cuda:0] * 2 on phase 4's --library and phase 6's v3
+               --library_tiles against those phases' CSVs; ShardedModeler
+               on [cuda:0] * 3 over phase 10's three pockets (seeds 0-2)
+               and ShardedSegmenter on [cuda:0] * 3 on phase 10's
+               187-hotspot pocket (get_pmnet_dev), both with phase 7's
+               checkpoint, map for map against the single path, K6 once
+               per pocket, pockets/s and ms of each in turns; the modeling
+               CLI on pocket 0 with two HET ligands: --all, --shard --all
+               (mesh patched to [cuda:0] * 3) and --profile DIR --all, the
+               .pm files equal and each trace holding CUDA kernel events;
+               one {"shard": ...} line
 Then prints the {"kernels": [...]} line, the nvidia-smi name/power line, and
 last {"ok": true, "device": {...}}. A kernel's `ms` is one call between two
 CUDA events (host work included), `stream_ms` its time per call back to
@@ -120,7 +141,8 @@ per block and blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor;
 K6's `occupancy` per kernel of its two launches). K1-K3 add their launch
 counts on the 12-conformer routes, K6 `launches_proxy` (phase 10's total)
 and `launches_proxy_paths` (per path), `launches_train` and
-`launches_train_paths` (phase 11's).
+`launches_train_paths` (phase 11's). K1, K2, K3, K5 and K6 add
+`launches_shard` (phase 12's).
 """
 
 from __future__ import annotations
@@ -2024,6 +2046,284 @@ def phase_train(dev, kernels: dict, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 12: sharded screening and sharded modeling
+# --------------------------------------------------------------------------
+SHARD_LIVE = {  # engine mapping -> (ShardedScreener flags, the kernel each share launches)
+    "K1": (dict(), "score_tiles_fused_rows"),
+    "K5": (dict(native_pack=False), "gaussian_phase"),
+    "reference": (dict(engine="reference"), None),
+}
+SHARD_POCKETS = 3  # modeler pockets (phase 10's seeds 0-2), segmenter devices
+SHARD_HETS = [("LIG", "A", 901, (0.0, 0.0, 0.0)), ("MOV", "B", 1, (0.0, 1.4, 1.2))]
+
+
+def rates_in_turns(fns: dict, work: int, rounds: int = 3) -> dict:
+    """`work` per median host second of each of `fns` (each call ending in
+    a synchronize), the functions called in turns, forward then backward
+    (2 * rounds calls each), so that no one of them always runs first."""
+    times: dict[str, list] = {k: [] for k in fns}
+    order = list(fns)
+    for r in range(2 * rounds):
+        for k in order if r % 2 == 0 else order[::-1]:
+            t0 = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            times[k].append(time.perf_counter() - t0)
+    return {k: work / statistics.median(v) for k, v in times.items()}
+
+
+def screen_counts(fn):
+    """(fn's result, the screening kernels' launch counts): reset just
+    before, read just after."""
+    from pharmaconet_tpu_torch.ops import screen_cuda
+
+    screen_cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in screen_cuda.LAUNCHES.items() if v}
+
+
+def shard_screening(pm, packed, names, ref, dev, check: Checks, launches: dict) -> dict:
+    """ShardedScreener on [cuda:0] and [cuda:0] * 2 against BatchScreener:
+    the headline batch in each live mode, then phase 6's v3 and v2 stores
+    through score_stored_group; ligands/s of each."""
+    from pharmaconet_tpu_torch.parallel.screening import ShardedScreener
+    from pharmaconet_tpu_torch.scoring.batch_screen import BatchScreener
+    from pharmaconet_tpu_torch.scoring.tiled_store import TiledStore
+
+    out: dict = {}
+    head, head_names = packed[:N_BATCH], names[:N_BATCH]
+    for mode, (flags, kernel) in SHARD_LIVE.items():
+        single = BatchScreener(pm, device=dev, **flags)
+        want = single.score_packed(head)
+        check.close(f"live {mode} BatchScreener vs reference engine", want,
+                    np.asarray([ref[k] for k in head_names]))
+        res, timed = {}, {"single": lambda single=single: single.score_packed(head)}
+        for n in (1, 2):
+            sharded = ShardedScreener(pm, mesh=[dev] * n, **flags)
+            timed[f"{n}_shares"] = lambda sharded=sharded: sharded.score_packed(head)
+            got, counts = screen_counts(lambda: sharded.score_packed(head))
+            res[f"{n}_launches"] = counts
+            res[f"{n}_max_abs_err"] = check.close(f"live {mode} on {n} shares vs BatchScreener",
+                                                  got, want)
+            check.true(f"live {mode} on {n} shares zero scores",
+                       [g == 0 for g in got] == [w == 0 for w in want], "zero-score sets differ")
+            check.true(f"live {mode} on {n} shares launches",
+                       counts == ({kernel: n} if kernel else {}), f"launched {counts}")
+            if kernel:
+                launches[kernel] = launches.get(kernel, 0) + counts.get(kernel, 0)
+        if mode == "K1":
+            res["ligands_per_s"] = rates_in_turns(timed, N_BATCH)
+        out[f"live_{mode}"] = res
+
+    single = BatchScreener(pm, device=dev)
+    for version, kernel in (("v3", "score_tiles_v3"), ("v2", "score_tiles_fused_dt")):
+        store = TiledStore(WORK / f"tiles_{version}", pm)
+        sbs = [store.load(bi) for bi in range(store.n_batches)]
+        n_lig = sum(sb.batch_len for sb in sbs)
+        want = [single.score_stored(sb) for sb in sbs]
+        res = {"batches": len(sbs)}
+        timed = {"single": lambda: [single.score_stored(sb) for sb in sbs]}
+        for n in (1, 2):
+            sharded = ShardedScreener(pm, mesh=[dev] * n)
+
+            def grouped(sharded=sharded, n=n):
+                return [s for g in range(0, len(sbs), n)
+                        for s in sharded.score_stored_group(sbs[g:g + n])]
+
+            timed[f"{n}_shares"] = grouped
+            got, counts = screen_counts(grouped)
+            res[f"{n}_launches"] = counts
+            res[f"{n}_max_abs_err"] = check.close(
+                f"stored {version} groups of {n} vs score_stored", np.concatenate(got),
+                np.concatenate(want))
+            check.true(f"stored {version} groups of {n} launches",
+                       counts == {kernel: len(sbs)}, f"launched {counts}")
+            launches[kernel] = launches.get(kernel, 0) + counts.get(kernel, 0)
+        res["ligands_per_s"] = rates_in_turns(timed, n_lig)
+        out[f"stored_{version}"] = res
+    return out
+
+
+def shard_screening_cli(dev, check: Checks, launches: dict) -> dict:
+    """The screening CLI's mesh branch (its mesh function patched to
+    [cuda:0] * 2) on phase 4's --library and phase 6's v3 --library_tiles:
+    each CSV against the single-card CLI's CSV of those phases."""
+    from pharmaconet_tpu_torch.cli import screening as cli
+
+    out: dict = {}
+    real = cli._screening_mesh
+    cli._screening_mesh = lambda args: [dev] * 2
+    try:
+        for route, src, single_csv, kernel in (
+                ("library", ["--library", str(WORK / "lib.npz"), "--batch_size", str(N_BATCH)],
+                 "lib.csv", "score_tiles_fused_rows"),
+                ("library_tiles", ["--library_tiles", str(WORK / "tiles_v3")], "v3.csv",
+                 "score_tiles_v3")):
+            csv = WORK / f"shard_{route}.csv"
+            args = cli.build_parser().parse_args(["-p", str(WORK / "model.pm"), *src,
+                                                  "-o", str(csv), "--device", str(dev)])
+            (rc, wall), counts = screen_counts(lambda: host_s(lambda: cli.main(args), reps=1))
+            check.true(f"CLI mesh {route} exit code", rc == 0, f"exited {rc}")
+            got, want = read_csv(csv), read_csv(WORK / single_csv)
+            check.true(f"CLI mesh {route} ligands", got.keys() == want.keys(),
+                       f"{len(got)} against {len(want)} ligands")
+            keys = sorted(want)
+            err = check.close(f"CLI mesh {route} vs single-card CSV",
+                              np.asarray([got.get(k, np.nan) for k in keys]),
+                              np.asarray([want[k] for k in keys]))
+            check.true(f"CLI mesh {route} launches", counts.get(kernel, 0) >= 4,
+                       f"launched {counts}")
+            launches[kernel] = launches.get(kernel, 0) + counts.get(kernel, 0)
+            out[route] = dict(wall_s=wall, ligands=len(got), ligands_per_s=len(got) / wall,
+                              launches=counts, max_abs_err=err)
+    finally:
+        cli._screening_mesh = real
+    return out
+
+
+def shard_modeling(dev, check: Checks, k6: dict) -> dict:
+    """ShardedModeler on [cuda:0] * 3 over phase 10's three pockets against
+    PharmacoNet per pocket, and ShardedSegmenter on [cuda:0] * 3 on phase
+    10's pocket 0 (get_pmnet_dev) against create_density_maps, both with
+    phase 7's checkpoint; then the modeling CLI with --shard --all and with
+    --profile on the pocket with two HET ligands."""
+    from pharmaconet_tpu_torch import api
+    from pharmaconet_tpu_torch.cli import modeling as cli
+    from pharmaconet_tpu_torch.module import PharmacoNet
+    from pharmaconet_tpu_torch.parallel.modeling import ShardedModeler, ShardedSegmenter
+    from pharmaconet_tpu_torch.synthetic import append_het_ligands, write_synthetic_pocket
+
+    out: dict = {}
+    ckpt = WORK / "ckpt.tar"  # phase 7's
+    jobs = []
+    for seed in range(SHARD_POCKETS):
+        pdb = WORK / f"shard_pocket{seed}.pdb"
+        jobs.append((pdb, None, write_synthetic_pocket(pdb, seed=seed)["center"]))
+    mesh = [dev] * SHARD_POCKETS
+
+    net = PharmacoNet(weight_path=ckpt, device=dev, verbose=False)
+    datas = [net.parse(p, center=c) for p, _, c in jobs]
+    (want, k6["serial_pockets"]) = k6_count(lambda: [net.create_density_maps(d) for d in datas])
+    modeler = ShardedModeler(net, mesh=mesh)
+    got, k6["sharded_modeler"] = k6_count(lambda: modeler.create_density_maps_batch(datas))
+    once_per_pocket("ShardedModeler", k6["sharded_modeler"], SHARD_POCKETS)
+    for i, (g, w) in enumerate(zip(got, want)):
+        check.true(f"ShardedModeler pocket {i} hotspots",
+                   [(h["nci_type"], h["hotspot_position"], h["hotspot_score"]) for h in g] ==
+                   [(h["nci_type"], h["hotspot_position"], h["hotspot_score"]) for h in w],
+                   f"{len(g)} against {len(w)} hotspots")
+        if len(g) == len(w):
+            check.close(f"ShardedModeler pocket {i} maps", [h["point_map"] for h in g],
+                        [h["point_map"] for h in w], rtol=0.0, atol=0.0)
+    models, _ = k6_count(lambda: modeler.run_batch(jobs))
+    for i, (m, job) in enumerate(zip(models, jobs)):
+        single = net.run(job[0], center=job[2])
+        check.true(f"ShardedModeler.run_batch pocket {i} .pm",
+                   pickle.dumps(m.__getstate__()) == pickle.dumps(single.__getstate__()),
+                   "the .pm differs from PharmacoNet.run's")
+    out["modeler"] = dict(pockets=SHARD_POCKETS, hotspots=[len(g) for g in got],
+                          pockets_per_s=rates_in_turns({
+                              "run_loop": lambda: [net.run(p, center=c) for p, _, c in jobs],
+                              "run_batch": lambda: modeler.run_batch(jobs)}, SHARD_POCKETS, 2))
+
+    dev_net = api.get_pmnet_dev(device=dev, weight_path=ckpt)
+    pdb, _, center = jobs[0]
+    data = dev_net.parse(pdb, center=center)
+    keep = int(dev_net.run_trunk(data)["keep"].sum())
+    step = SHARD_POCKETS * dev_net.segmentation_chunk
+    segmenter = ShardedSegmenter(dev_net, mesh=mesh)
+    want, _ = k6_count(lambda: dev_net.create_density_maps(data))
+    got, k6["sharded_segmenter"] = k6_count(lambda: segmenter.create_density_maps(data))
+    once_per_pocket("ShardedSegmenter", k6["sharded_segmenter"])
+    check.true("ShardedSegmenter hotspots",
+               [(h["nci_type"], h["hotspot_position"], h["hotspot_score"]) for h in got] ==
+               [(h["nci_type"], h["hotspot_position"], h["hotspot_score"]) for h in want],
+               f"{len(got)} against {len(want)} hotspots")
+    if len(got) == len(want):
+        check.close("ShardedSegmenter maps", [h["point_map"] for h in got],
+                    [h["point_map"] for h in want], rtol=0.0, atol=0.0)
+    per_s = rates_in_turns({"create_density_maps": lambda: dev_net.create_density_maps(data),
+                            "segmenter": lambda: segmenter.create_density_maps(data)}, 1, 2)
+    padded = -(-keep // step) * step
+    out["segmenter"] = dict(kept_tokens=keep, padded_tokens=padded,
+                            chunks_per_share=padded // step, hotspots=len(got),
+                            ms={k: 1e3 / v for k, v in per_s.items()})
+
+    het = WORK / "shard_complex.pdb"
+    het.write_text(pdb.read_text())
+    c = np.asarray(center)
+    append_het_ligands(het, [(h, ch, r, tuple(c + d)) for h, ch, r, d in SHARD_HETS])
+    real = cli._modeling_mesh
+    cli._modeling_mesh = lambda args: mesh
+    runs = {}
+    try:
+        for label, extra in (("all", []), ("shard_all", ["--shard"]),
+                             ("profile_all", ["--profile", str(WORK / "trace")])):
+            args = cli.build_parser().parse_args([
+                "-p", str(het), "--all", "--prefix", "cx", "--out_dir",
+                str(WORK / f"shard_cli_{label}"), "--weight_path", str(ckpt), "--device",
+                str(dev), *extra])
+            (rc, wall), k6[f"modeling_cli_{label}"] = k6_count(
+                lambda: host_s(lambda: cli.main(args), reps=1))
+            once_per_pocket(f"modeling CLI {label}", k6[f"modeling_cli_{label}"], len(SHARD_HETS))
+            check.true(f"modeling CLI {label} exit code", rc == 0, f"exited {rc}")
+            runs[label] = ({p.name: p.read_bytes() for p in
+                            sorted((WORK / f"shard_cli_{label}").glob("*_model.pm"))}, wall)
+    finally:
+        cli._modeling_mesh = real
+    plain = runs["all"][0]
+    check.true("modeling CLI sites", len(plain) == len(SHARD_HETS), f"wrote {sorted(plain)}")
+    for label in ("shard_all", "profile_all"):
+        check.true(f"modeling CLI {label} .pm", runs[label][0] == plain,
+                   "the .pm files differ from the run without the flag")
+    traces = sorted((WORK / "trace").glob("*.pt.trace.json"))  # one per site modeled
+    kernel_events = [sum(e.get("cat") == "kernel" for e in json.loads(t.read_text())["traceEvents"])
+                     for t in traces]
+    check.true("modeling CLI --profile traces",
+               len(traces) == len(SHARD_HETS) and min(kernel_events, default=0) > 0,
+               f"{len(traces)} trace files, CUDA kernel events {kernel_events}")
+    out["modeling_cli"] = {label: dict(wall_s=wall, sites=len(pms))
+                           for label, (pms, wall) in runs.items()}
+    out["modeling_cli"]["trace_kernel_events"] = kernel_events
+    return out
+
+
+def phase_shard(pm, packed, names, ref, dev, kernels: dict, card: str) -> dict:
+    """Sharded screening and sharded modeling on meshes that name cuda:0
+    one to three times; every launch count read just after its path."""
+    out: dict = {"card": card}
+    check = Checks("phase 12")
+    launches: dict[str, int] = {}
+    k6: dict[str, int] = {}
+    t0 = time.perf_counter()
+    out["screening"] = shard_screening(pm, packed, names, ref, dev, check, launches)
+    out["screening_cli"] = shard_screening_cli(dev, check, launches)
+    out["screening_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["modeling"] = shard_modeling(dev, check, k6)
+    out["modeling_s"] = time.perf_counter() - t0
+    out["screening_launches"] = launches
+    out["k6_launches"] = k6
+    out["comparisons"] = check.seen
+    for name, n in launches.items():
+        kernels[name]["launches_shard"] = n
+    kernels["voxelize_pallas"]["launches_shard"] = sum(
+        v for k, v in k6.items() if k != "serial_pockets")
+    for route in ("live_K1", "stored_v3", "stored_v2"):
+        log(f"  {route}, ligands/s on {card} (BatchScreener, ShardedScreener on 1 and 2 "
+            f"shares, in turns): {out['screening'][route]['ligands_per_s']}")
+    log(f"  screening CLI mesh branch: {out['screening_cli']}")
+    log(f"  modeling: {out['modeling']}")
+    log(f"  launches: screening {launches}, K6 {k6}; phase parts (host s): screening "
+        f"{out['screening_s']:.1f}, modeling {out['modeling_s']:.1f}")
+    log(f"  comparisons: {check.seen}")
+    check.raise_misses()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2063,6 +2363,9 @@ def main() -> int:
         print(json.dumps({"proxy": phase_proxy(dev, kernels, smi)}), flush=True)
         log("[11] serving at scale and training at full width")
         print(json.dumps({"train": phase_train(dev, kernels, smi)}), flush=True)
+        log("[12] sharded screening and sharded modeling on meshes of cuda:0")
+        print(json.dumps({"shard": phase_shard(pm, packed, names, ref, dev, kernels, smi)}),
+              flush=True)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

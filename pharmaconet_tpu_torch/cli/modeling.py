@@ -12,7 +12,11 @@ for a centre, `<prefix>_<ligand stem>_model.pm` for --ref_ligand), reused
 unless --force, plus a PyMOL visualization (.pse with pymol installed, a
 .pml script otherwise). Modeling runs on --device (default cuda; asking
 for cuda without a visible card is an error, never a quiet move to the
-CPU).
+CPU). --shard, with --device cuda and more than one visible card, fans
+each pocket's segmentation over the cards (`parallel.modeling.ShardedSegmenter`)
+and, with --all, models the sites that are not cached one pocket per card
+(`ShardedModeler.run_batch`); with one card it runs there. --profile DIR
+writes a torch.profiler trace of the modeling to DIR (`utils.profiling.trace`).
 
   python -m pharmaconet_tpu_torch.cli.modeling -p pocket.pdb --center 1.0 2.0 3.0 \\
       --prefix pocket --weight_path model.tar --device cuda
@@ -58,8 +62,13 @@ def build_parser() -> argparse.ArgumentParser:
                      help="trunk and cavity/token head precision")
     env.add_argument("--device", type=str, default="cuda",
                      help="torch device that models (cuda, cuda:N, or cpu)")
-    env.add_argument("--profile", type=str, metavar="DIR", help="device trace (not yet ported)")
-    env.add_argument("--shard", action="store_true", help="multi-device modeling (not yet ported)")
+    env.add_argument("--profile", type=str, metavar="DIR",
+                     help="write a torch.profiler trace of the modeling run to DIR "
+                          "(view with TensorBoard or Perfetto)")
+    env.add_argument("--shard", action="store_true",
+                     help="use every visible card: with --all and several uncached sites, "
+                          "one pocket per card (ShardedModeler); otherwise each pocket's "
+                          "hotspots fan out over the cards (ShardedSegmenter)")
     env.add_argument("-v", "--verbose", action="store_true", help="verbose")
 
     adv = parser.add_argument_group("advanced")
@@ -75,18 +84,22 @@ def _ask_center() -> tuple[float, float, float] | None:
         return None
 
 
+def _modeling_mesh(args):
+    """The devices --shard spreads over (`parallel.mesh.visible_mesh`), or None."""
+    from pharmaconet_tpu_torch.parallel.mesh import visible_mesh
+
+    return visible_mesh(args.device)
+
+
 def main(args) -> int:
-    for flag, name in ((args.shard, "--shard"), (args.profile, "--profile")):
-        if flag:
-            print(f"{name} is not yet ported to pharmaconet_tpu_torch", file=sys.stderr)
-            return FAIL
     if args.pdb is None and args.protein is None:
         print("missing protein: --pdb or -p/--protein", file=sys.stderr)
         return FAIL
 
     from pharmaconet_tpu_torch.module import PharmacoNet
+    from pharmaconet_tpu_torch.parallel.modeling import ShardedModeler, ShardedSegmenter
     from pharmaconet_tpu_torch.pharmacophore.model import PharmacophoreModel
-    from pharmaconet_tpu_torch.utils import visualize
+    from pharmaconet_tpu_torch.utils import profiling, visualize
     from pharmaconet_tpu_torch.utils.rcsb import download_pdb, parse_pdb
 
     prefix = args.prefix or args.pdb or Path(args.protein).stem
@@ -105,22 +118,44 @@ def main(args) -> int:
         assert os.path.exists(protein_path), protein_path
     logging.info(f"Load {protein_path}")
 
-    module = None  # built once, at the first site that is not cached
+    mesh = _modeling_mesh(args) if args.shard else None
+    if args.shard and mesh is None:
+        logging.info("--shard requested but only one device is visible; running single-device")
+    module = runner = None  # built once, at the first site that is not cached
 
-    def run_pmnet(filename, ligand_path=None, center=None) -> PharmacophoreModel:
-        nonlocal module
+    def network():
+        nonlocal module, runner
+        if module is None:
+            module = PharmacoNet(weight_path=args.weight_path, matmul_precision=args.precision,
+                                 segmentation_precision=args.segmentation_precision,
+                                 device=args.device, verbose=args.verbose)
+            logging.info("Load PharmacoNet finish")
+            runner = module
+            if mesh is not None:
+                runner = ShardedSegmenter(module, mesh=mesh)
+                logging.info(f"Sharding hotspot segmentation over {len(mesh)} devices")
+        return module
+
+    def profiled(fn):
+        if not args.profile:
+            return fn()
+        with profiling.trace(args.profile):
+            out = fn()
+        logging.info(f"Wrote device trace to {args.profile}")
+        return out
+
+    def run_pmnet(filename, ligand_path=None, center=None, model=None) -> PharmacophoreModel:
         model_path = save_dir / f"{filename}.{args.suffix}"
-        if (not args.force) and model_path.exists():
+        if model is not None:  # modeled by the batched mesh path
+            model.save(str(model_path))
+            logging.info(f"Save pharmacophore model to {model_path}")
+        elif (not args.force) and model_path.exists():
             logging.warning(f"Modeling pass - {model_path} exists")
             model = PharmacophoreModel.load(str(model_path))
         else:
-            if module is None:
-                module = PharmacoNet(weight_path=args.weight_path,
-                                     matmul_precision=args.precision,
-                                     segmentation_precision=args.segmentation_precision,
-                                     device=args.device, verbose=args.verbose)
-                logging.info("Load PharmacoNet finish")
-            model = module.run(protein_path, ref_ligand_path=ligand_path, center=center)
+            network()
+            model = profiled(lambda: runner.run(protein_path, ref_ligand_path=ligand_path,
+                                                center=center))
             model.save(str(model_path))
             logging.info(f"Save pharmacophore model to {model_path}")
         written = visualize.visualize_single(model, protein_path, ligand_path, prefix,
@@ -128,9 +163,9 @@ def main(args) -> int:
         logging.info(f"Save visualization to {written}")
         return model
 
-    def run_site(inform) -> PharmacophoreModel:
+    def run_site(inform, model=None) -> PharmacophoreModel:
         return run_pmnet(f"{prefix}_{inform.pdbchain}_{inform.id}_model", inform.file_path,
-                         inform.center)
+                         inform.center, model=model)
 
     if args.ref_ligand is not None:
         assert os.path.exists(args.ref_ligand), args.ref_ligand
@@ -157,8 +192,20 @@ def main(args) -> int:
 
     if args.all:
         logging.info("Use all binding sites (-a | --all)")
-        model_dict = {f"{prefix}_{i.pdbchain}_{i.id}": (run_site(i), i.file_path)
-                      for i in informs}
+        # --shard with several uncached sites: one pocket per device
+        # (ShardedModeler.run_batch); cached sites stay out of the batch
+        keys = [f"{prefix}_{i.pdbchain}_{i.id}" for i in informs]
+        todo = [(k, i) for k, i in zip(keys, informs)
+                if args.force or not (save_dir / f"{k}_model.{args.suffix}").exists()]
+        batched = {}
+        if mesh is not None and len(todo) > 1:
+            logging.info(f"Batch-modeling {len(todo)} sites over {len(mesh)} devices")
+            modeler = ShardedModeler(network(), mesh=mesh)
+            models = profiled(lambda: modeler.run_batch(
+                [(protein_path, i.file_path, i.center) for _, i in todo]))
+            batched = {k: m for (k, _), m in zip(todo, models)}
+        model_dict = {k: (run_site(i, model=batched.get(k)), i.file_path)
+                      for k, i in zip(keys, informs)}
         written = visualize.visualize_multiple(model_dict, protein_path, prefix,
                                                str(save_dir / f"{prefix}.pse"))
         logging.info(f"Save combined visualization to {written}")

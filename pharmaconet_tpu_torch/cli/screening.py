@@ -9,7 +9,10 @@ packed in memory and screened as --library is), or from a model-specific
 tile store (--library_tiles, written by `prepack --tiles_out`), whose
 batches go straight to the kernels. Scoring runs on --device (default
 cuda; asking for cuda without a visible card is an error, never a quiet
-move to the CPU).
+move to the CPU). With --device cuda and more than one visible card, the
+screen shards over all of them (`parallel.screening.ShardedScreener`):
+each --library/--smiles batch splits into one share per card, and
+--library_tiles scores one stored batch per card at a time.
 
   python -m pharmaconet_tpu_torch.cli.screening -p model.pm --library lib.npz \\
       -o out.csv --device cuda
@@ -89,12 +92,23 @@ def load_partial(partial_path: Path, names: list[str]) -> dict[int, float]:
     return done
 
 
+def _screening_mesh(args):
+    """The devices a screen shards over (`parallel.mesh.visible_mesh`), or None."""
+    from pharmaconet_tpu_torch.parallel.mesh import visible_mesh
+
+    return visible_mesh(args.device)
+
+
 def screen_tiles(screener, store_path: str, out: str) -> list[tuple[str, float]]:
     """Screen every batch of a tile store; returns (name, score) in
     library order. Batch i+1 is dispatched (asynchronous on the card)
     before batch i's host tail runs, and a prefetch thread pages batch
-    i+1 in from disk meanwhile. Scores append to <out>.partial as batches
-    complete; a rerun skips the ligands already there."""
+    i+1 in from disk meanwhile. A ShardedScreener over more than one
+    device instead scores groups of one non-empty batch per device
+    (score_stored_group) and the leftover batches singly on its home
+    device. Empty batches score 0. Scores append to <out>.partial as
+    batches complete; a rerun skips the ligands already there."""
+    from pharmaconet_tpu_torch.parallel.screening import ShardedScreener
     from pharmaconet_tpu_torch.scoring.tiled_store import TiledStore
 
     store = TiledStore(store_path, screener.packed_model)
@@ -109,30 +123,49 @@ def screen_tiles(screener, store_path: str, out: str) -> list[tuple[str, float]]
         if not all(i in done for i in range(bi * store.batch_size,
                                             min((bi + 1) * store.batch_size, store.n_ligands)))
     ]
+    n_dev = len(screener.mesh) if isinstance(screener, ShardedScreener) else 1
     with open(partial_path, "a") as partial:
 
-        def emit(sb, result, base):
-            scores = (screener.postprocess_stored(sb, result)
-                      if result is not None else [0.0] * sb.batch_len)
+        def emit_scores(scores, base):
             for j, score in enumerate(scores):
                 if base + j not in done:
                     partial.write(f"{base + j},{names[base + j]},{score}\n")
                     results.append((names[base + j], score))
             partial.flush()
 
-        pending = None
-        for bi, sb in store.iter_loaded(todo):
-            result = None if sb.empty else screener.dispatch_stored(sb)
+        def emit(sb, result, base):
+            emit_scores(screener.postprocess_stored(sb, result)
+                        if result is not None else [0.0] * sb.batch_len, base)
+
+        if n_dev > 1:
+            group: list = []
+            for bi, sb in store.iter_loaded(todo):
+                if sb.empty:
+                    emit(sb, None, bi * store.batch_size)
+                    continue
+                group.append((bi, sb))
+                if len(group) == n_dev:
+                    scores = screener.score_stored_group([s for _, s in group])
+                    for (gbi, _), batch_scores in zip(group, scores):
+                        emit_scores(batch_scores, gbi * store.batch_size)
+                    group = []
+            for gbi, gsb in group:  # leftovers: one at a time on the home device
+                emit(gsb, screener.dispatch_stored(gsb), gbi * store.batch_size)
+        else:
+            pending = None
+            for bi, sb in store.iter_loaded(todo):
+                result = None if sb.empty else screener.dispatch_stored(sb)
+                if pending is not None:
+                    emit(*pending)
+                pending = (sb, result, bi * store.batch_size)
             if pending is not None:
                 emit(*pending)
-            pending = (sb, result, bi * store.batch_size)
-        if pending is not None:
-            emit(*pending)
     partial_path.unlink()  # complete: the sorted CSV is the record
     return results
 
 
 def main(args) -> int:
+    from pharmaconet_tpu_torch.parallel.screening import ShardedScreener
     from pharmaconet_tpu_torch.pharmacophore.model import PharmacophoreModel
     from pharmaconet_tpu_torch.scoring.batch_screen import BatchScreener
     from pharmaconet_tpu_torch.scoring.ligand import Ligand
@@ -148,8 +181,12 @@ def main(args) -> int:
         Hydrophobic=args.hydrophobic,
     )
     pack_threads = args.pack_threads or os.cpu_count() or 1
-    screener = BatchScreener(model, weights, pack_threads=pack_threads,
-                             device=args.device)
+    mesh = _screening_mesh(args)
+    if mesh is not None:
+        screener = ShardedScreener(model, weights, mesh=mesh, pack_threads=pack_threads)
+    else:
+        screener = BatchScreener(model, weights, pack_threads=pack_threads,
+                                 device=args.device)
 
     results: list[tuple[str, float]] = []
     if args.library_tiles:
@@ -196,11 +233,17 @@ def main(args) -> int:
                     results.append((name, score))
                 partial.flush()
 
-            executor = ScreeningExecutor(
-                screener, batch_size=args.batch_size,
-                pack_workers=max(1, min(4, pack_threads)),
-            )
-            executor.score_packed([p for _, p, _ in todo], on_batch=stream)
+            if isinstance(screener, ShardedScreener):
+                # each batch already spans every device of the mesh
+                for start in range(0, len(todo), args.batch_size):
+                    chunk = todo[start : start + args.batch_size]
+                    stream(start, screener.score_packed([p for _, p, _ in chunk]))
+            else:
+                executor = ScreeningExecutor(
+                    screener, batch_size=args.batch_size,
+                    pack_workers=max(1, min(4, pack_threads)),
+                )
+                executor.score_packed([p for _, p, _ in todo], on_batch=stream)
         partial_path.unlink()  # complete: the sorted CSV is the record
     else:
         if not args.library_dir:

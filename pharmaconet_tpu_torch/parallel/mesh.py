@@ -32,6 +32,15 @@ def data_mesh(devices=None) -> list[torch.device]:
     return mesh
 
 
+def visible_mesh(device: str) -> list[torch.device] | None:
+    """The mesh an entry point shards over for `--device device`: every
+    visible card when `device` is 'cuda' (no index) and more than one card
+    is visible, else None (one device: 'cuda:N', 'cpu' or a single card)."""
+    if device == "cuda" and torch.cuda.is_available() and torch.cuda.device_count() > 1:
+        return data_mesh()
+    return None
+
+
 def same_device(a: torch.device, b: torch.device) -> bool:
     """`a` and `b` name one device ('cuda' is the current CUDA device)."""
     a, b = torch.device(a), torch.device(b)

@@ -29,6 +29,7 @@ enforce it).
 from __future__ import annotations
 
 import contextlib
+import functools
 import types
 from dataclasses import dataclass
 
@@ -1005,39 +1006,53 @@ class BatchScreener:
         out = [0.0] * len(packed)
         if not live:
             return out
-        if self.uses_tiled_pack:
-            scores = self._score_tiled_native([p for _, p in live])
-        elif self.engine == "v3":
-            batch = build_batch(self.packed_model, [p for _, p in live])
-            scores = self.score_vb(self.build_vb(batch))
-        else:
-            batch = build_batch(self.packed_model, [p for _, p in live])
-            if self.engine == "tiled":
-                tiled = self.device_args_tiled(batch)
-                expanded = self._to_host(self.run_device_tiled(tiled))
-                table = compact_pair_table_tiled(expanded, tiled.pair_end_rows)
-            else:
-                expanded = self._to_host(self.run_device(batch))  # [C, NS]
-                table = compact_pair_table(batch, expanded)
-            # geometric prune (host, static per batch; graph_match.py:267)
-            prune = host_prune_mask(batch, self.packed_model)
-            table[: len(prune)][prune] = -1.0
-            scores = _dfs_scores(batch, table)
+        scores = self.dispatch_live([p for _, p in live])()
         for (i, _), s in zip(live, scores):
             out[i] = s
         return out
 
-    def _score_tiled_native(self, live: list[PackedLigand]) -> list[float]:
-        """One-pass C++ pack straight to the tile-major layout + K1."""
-        from .tiled_pack import build_tiled_batch
+    def dispatch_live(self, live: list[PackedLigand], cmax: int | None = None):
+        """Host pack and kernel launch of one batch of ligands that have
+        clusters (asynchronous on the card), by engine: the one-pass C++
+        pack + K1; build_batch + the K4 or K5 tiled layout; the v3 layout +
+        K2; or build_batch + score_blocks_device. `cmax` pins the conformer
+        slots. Returns the host tail: a call that gives the ligands'
+        scores. A one-pass pack aliases this screener's buffer cache, so
+        call the tail before the next pack."""
+        if self.uses_tiled_pack:
+            from .tiled_pack import build_tiled_batch
 
-        tb = build_tiled_batch(
-            self.packed_model, live, threads=self.pack_threads,
-            rows_hint=int(self._rows_hint * len(live)),
-            buffer_cache=self._pack_buffers,
-        )
-        self._rows_hint = 0.7 * self._rows_hint + 0.3 * (tb.nst / max(1, len(live)))
-        return self.score_tb(tb)
+            tb = build_tiled_batch(
+                self.packed_model, live, threads=self.pack_threads,
+                rows_hint=int(self._rows_hint * len(live)),
+                buffer_cache=self._pack_buffers, cmax=cmax,
+            )
+            self._rows_hint = 0.7 * self._rows_hint + 0.3 * (tb.nst / max(1, len(live)))
+            return functools.partial(self.postprocess_tb, tb, self.dispatch_tb(tb))
+        batch = build_batch(self.packed_model, live, cmax=cmax)
+        if self.engine == "v3":
+            vb = self.build_vb(batch)
+            return functools.partial(self.postprocess_vb, vb, self.dispatch_vb(vb))
+        if self.engine == "tiled":
+            tiled = self.device_args_tiled(batch)
+            return functools.partial(self.postprocess_expanded, batch,
+                                     self.run_device_tiled(tiled), tiled.pair_end_rows)
+        return functools.partial(self.postprocess_expanded, batch, self.run_device(batch))
+
+    def postprocess_expanded(self, batch: ScreenBatch, expanded_dev: torch.Tensor,
+                             pair_end_rows: np.ndarray | None = None) -> list[float]:
+        """Host tail for an expanded [C, NS] table (K4, K5 + scans, or
+        score_blocks_device): pair compaction (at the tiled layout's
+        pair-end rows where given), the geometric prune and the DFS."""
+        expanded = self._to_host(expanded_dev)
+        if pair_end_rows is None:
+            table = compact_pair_table(batch, expanded)
+        else:
+            table = compact_pair_table_tiled(expanded, pair_end_rows)
+        # geometric prune (host, static per batch; graph_match.py:267)
+        prune = host_prune_mask(batch, self.packed_model)
+        table[: len(prune)][prune] = -1.0
+        return _dfs_scores(batch, table, threads=self.pack_threads)
 
     def dispatch_tb(self, tb) -> torch.Tensor:
         """Launch K1 on a packed tiled batch or a v1 store batch
@@ -1121,9 +1136,6 @@ class BatchScreener:
         prune = host_prune_mask(vb, self.packed_model)
         table[: len(prune)][prune] = -1.0
         return _dfs_scores(vb, table, threads=self.pack_threads)
-
-    def score_vb(self, vb) -> list[float]:
-        return self.postprocess_vb(vb, self.dispatch_vb(vb))
 
     # ------------------------------------------------------------------
     # tile-store batches (scoring/tiled_store.py)

@@ -4,7 +4,10 @@ The live routes: -d over a directory of .sdf/.mol2 files, and --library
 over a prepacked .npz written by the JAX `prepack` CLI (the stored route,
 --library_tiles, is in test_torch_tiled_store.py). The CSVs
 must list the same ligands with scores within rtol 2e-5 / atol 1e-4, and a
-screen resumed from <out>.partial must give the same CSV.
+screen resumed from <out>.partial must give the same CSV. The mesh branch
+(the CLI's `_screening_mesh` patched to three CPU devices: a
+`ShardedScreener`) must write the single-device CLI's CSV on -d, --library
+and --library_tiles, and resume from <out>.partial.
 """
 
 from __future__ import annotations
@@ -135,3 +138,101 @@ def test_cuda_without_card_is_an_error(inputs, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_cli.main(args)
     assert not (tmp_path / "o.csv").exists()
+
+
+# --------------------------------------------------------------------------
+# The mesh branch: more than one device (here three CPU devices)
+# --------------------------------------------------------------------------
+@pytest.fixture
+def mesh3(monkeypatch):
+    """The CLI shards over three CPU devices; returns the sharded calls
+    made: ("packed", ligands) per score_packed, ("group", batches) per
+    score_stored_group and ("single", 1) per stored batch dispatched alone
+    on the home device."""
+    from pharmaconet_tpu_torch.parallel.screening import ShardedScreener
+
+    monkeypatch.setattr(t_cli, "_screening_mesh", lambda args: [torch.device("cpu")] * 3)
+    calls = []
+    for name, tag in (("score_packed", "packed"), ("score_stored_group", "group"),
+                      ("dispatch_stored", "single")):
+        real = getattr(ShardedScreener, name)
+
+        def spy(self, batch, _real=real, _tag=tag):
+            calls.append((_tag, 1 if _tag == "single" else len(batch)))
+            return _real(self, batch)
+
+        monkeypatch.setattr(ShardedScreener, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("route", ["dir", "library"])
+def test_mesh_branch_equals_single_device(inputs, tmp_path, mesh3, route):
+    """-d and --library on a mesh: each batch of --batch_size goes to
+    ShardedScreener.score_packed (shares over the devices), the CSV equals
+    the single-device CLI's, and --library resumes from <out>.partial."""
+    src = ["--library", str(inputs / "lib.npz")] if route == "library" else \
+        ["-d", str(inputs / "ligands")]
+    common = ["-p", str(inputs / "model.pm"), *src, "--batch_size", "16"]
+    assert t_cli.main(_port_args(*common, "-o", str(tmp_path / "mesh.csv"))) == 0
+    assert mesh3 == [("packed", 16), ("packed", 16), ("packed", 8)]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(t_cli, "_screening_mesh", lambda args: None)
+        assert t_cli.main(_port_args(*common, "-o", str(tmp_path / "single.csv"))) == 0
+    _assert_csv_close(tmp_path / "mesh.csv", tmp_path / "single.csv")
+    if route == "dir":
+        return
+    full = dict(_read_csv(tmp_path / "mesh.csv"))
+    from pharmaconet_tpu_torch.scoring.library import load_library
+
+    _, names = load_library(inputs / "lib.npz")
+    partial = tmp_path / "resumed.csv.partial"
+    partial.write_text("".join(f"{i},{names[i]},{full[names[i]]}\n" for i in range(5))
+                       + f"5,{names[5][:6]}")
+    mesh3.clear()
+    assert t_cli.main(_port_args(*common, "-o", str(tmp_path / "resumed.csv"))) == 0
+    assert mesh3 == [("packed", 16), ("packed", 16), ("packed", 3)]
+    assert (tmp_path / "resumed.csv").read_text() == (tmp_path / "mesh.csv").read_text()
+    assert not partial.exists()
+
+
+def test_mesh_branch_library_tiles(inputs, tmp_path, mesh3):
+    """--library_tiles on a mesh of three: groups of three non-empty
+    batches through score_stored_group, the leftovers one at a time on the
+    home device, an empty batch as zeros; the CSV equals the single-device
+    CLI's, and a screen resumed from <out>.partial (the first batch and a
+    bit done, a torn line) gives the uninterrupted one's scores."""
+    from pharmaconet_tpu_torch.cli import prepack as t_prepack
+    from pharmaconet_tpu_torch.scoring import batch_screen as tbs
+    from pharmaconet_tpu_torch.scoring.library import load_library, save_library
+    from test_torch_tiled_store import _empty
+
+    packed, names = load_library(inputs / "lib.npz")
+    save_library(tmp_path / "lib.npz", packed + [_empty(tbs)] * 8,
+                 names + [f"empty{i}" for i in range(8)])
+    tiles = tmp_path / "tiles"
+    assert t_prepack.main(t_prepack.build_parser().parse_args(
+        ["--library", str(tmp_path / "lib.npz"), "-p", str(inputs / "model.pm"), "--tiles_out",
+         str(tiles), "--batch_size", "8", "--device", "cpu"])) == 0
+    common = ["-p", str(inputs / "model.pm"), "--library_tiles", str(tiles)]
+    assert t_cli.main(_port_args(*common, "-o", str(tmp_path / "mesh.csv"))) == 0
+    assert mesh3 == [("group", 3), ("single", 1), ("single", 1)]  # 5 batches, then 1 empty
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(t_cli, "_screening_mesh", lambda args: None)
+        assert t_cli.main(_port_args(*common, "-o", str(tmp_path / "single.csv"))) == 0
+    _assert_csv_close(tmp_path / "mesh.csv", tmp_path / "single.csv")
+    full = dict(_read_csv(tmp_path / "mesh.csv"))
+    assert [full[f"empty{i}"] for i in range(8)] == [0.0] * 8
+
+    all_names = names + [f"empty{i}" for i in range(8)]
+    partial = tmp_path / "resumed.csv.partial"
+    partial.write_text("".join(f"{i},{all_names[i]},{full[all_names[i]]}\n" for i in range(10))
+                       + f"10,{all_names[10][:4]}")
+    mesh3.clear()
+    assert t_cli.main(_port_args(*common, "-o", str(tmp_path / "resumed.csv"))) == 0
+    assert mesh3 == [("group", 3), ("single", 1)]  # batches 1-3, then 4; 5 is empty
+    # the same rows; ligands of equal score may be listed in another order,
+    # since a group's batches are written before an earlier empty batch's
+    resumed = _read_csv(tmp_path / "resumed.csv")
+    assert dict(resumed) == full and len(resumed) == len(full)
+    assert [s for _, s in resumed] == sorted(full.values(), reverse=True)
+    assert not partial.exists()

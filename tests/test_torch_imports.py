@@ -95,6 +95,9 @@ def test_every_module_imports_without_jax_and_builds_nothing():
         "training.affinity_model", "training.convert", "training.dataset", "training.train_step",
         "training.trainer")}
     assert serving_and_training <= names, serving_and_training - names
+    sharded = {f"pharmaconet_tpu_torch.{m}" for m in (
+        "parallel.screening", "parallel.modeling", "utils.profiling", "cli.convert_weights")}
+    assert sharded <= names, sharded - names
 
 
 def test_cuda_without_card_raises():
