@@ -41,9 +41,12 @@ Phases, in order; any failure exits non-zero:
                apart (python -m pharmaconet_tpu_torch.probes.probe_voxelize,
                a subprocess); the modeling CLI (K6 launch
                count reset just before, read just after: once per pocket); its float32-segmentation run held against
-               PharmacoNet(voxelizer="reference"); how far the default TF32
-               mask decoder moves the maps (printed, not gated); the
-               host-clock stages of one pocket
+               PharmacoNet(voxelizer="reference"); the mask decoder on the
+               kept hotspots as one TF32 pass against float32 (what the
+               default 'tensorfloat32' runs): voxels across the threshold,
+               largest map difference, its share of the largest value and
+               ms per chunk of each (printed, not gated); the host-clock
+               stages of one pocket
   8. probes  — the probe kernels P1-P4 at the headline batch: each probe
                entry point (python -m pharmaconet_tpu_torch.probes.*) run
                once as a subprocess, which checks and times its kernels;
@@ -59,9 +62,10 @@ Phases, in order; any failure exits non-zero:
                designs' registers and spill bytes at every C
   9. smiles  — SMILES input, the distance-geometry embedder's torch backend
                on the card (no Pallas kernel on its path; K1 screens its
-               output): C1, 64 fragment SMILES embedded and scored through
-               K1 against GraphMatcher; C4, solo embeds bit-identical to the
-               batched one; embed_program on the card against the CPU on the
+               output): the battery's C1, 64 fragment SMILES embedded and
+               scored through K1 against GraphMatcher, and C4, solo embeds
+               bit-identical to the batched one (both called from
+               pharmaconet_tpu_torch/probes/chip_ci.py); embed_program on the card against the CPU on the
                same draws (a full chunk and the drug-like panel) and one
                refinement step's times; thin_qr against torch.linalg.qr;
                then 2048 fragment SMILES x 8 conformers through prepack
@@ -129,6 +133,22 @@ Phases, in order; any failure exits non-zero:
                (mesh patched to [cuda:0] * 3) and --profile DIR --all, the
                .pm files equal and each trace holding CUDA kernel events;
                one {"shard": ...} line
+ 13. battery — the port's on-chip battery, python -m
+               pharmaconet_tpu_torch.probes.chip_ci (C1-C7, not --fast) as a
+               subprocess, its summary line read: every check ok, its
+               seconds, C6's deviation and flips (and one TF32 pass's,
+               not gated), its K1/K2/K6 launches (each check's counted
+               from 0);
+               cli/verify_checkpoint.py's main on phase 7's checkpoint and
+               seed-0 pocket with its ligand (synthetic.write_synthetic_site)
+               and a TacoGFN .pth from _init_random(7): every stage ok,
+               activation parity skipped for the absent upstream checkout,
+               the TF32 probe's flips and largest density difference, K6
+               twice (our_modeling, tf32_probe); examples/end_to_end_torch.py
+               on the card (K1 and K6 counted: K6 once), its CSV against the
+               reference engine on its .pm and library; both
+               get_cache_*_torch.py examples (K6 once each, a cache database
+               written); one {"battery": ...} line
 Then prints the {"kernels": [...]} line, the nvidia-smi name/power line, and
 last {"ok": true, "device": {...}}. A kernel's `ms` is one call between two
 CUDA events (host work included), `stream_ms` its time per call back to
@@ -142,7 +162,9 @@ K6's `occupancy` per kernel of its two launches). K1-K3 add their launch
 counts on the 12-conformer routes, K6 `launches_proxy` (phase 10's total)
 and `launches_proxy_paths` (per path), `launches_train` and
 `launches_train_paths` (phase 11's). K1, K2, K3, K5 and K6 add
-`launches_shard` (phase 12's).
+`launches_shard` (phase 12's). K1, K2 and K6 add `launches_battery` (phase
+13's total) and `launches_battery_paths` (per path: the battery's process,
+verify_checkpoint and each example).
 """
 
 from __future__ import annotations
@@ -854,6 +876,49 @@ def modeling_stages(net, pdb: Path, center) -> dict[str, float]:
     return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
 
 
+def decoder_precisions(net, data) -> dict:
+    """The mask decoder on the pocket's kept hotspots, chunk by chunk, in
+    float32 (what the default 'tensorfloat32' runs) and as one TF32 pass
+    (precision_scope): each mode's thresholded-voxel flips, largest map
+    difference against float32 and that difference over float32's largest
+    value, and its ms per chunk (host clock to a synchronize, median over
+    chunks of the median of 3)."""
+    from pharmaconet_tpu_torch.module import precision_scope
+
+    dev = net.device
+    scopes = {"float32": lambda: precision_scope("float32", dev),
+              "tf32_one_pass": lambda: precision_scope("tensorfloat32", dev)}
+    out = net.run_trunk(data)
+    keep = np.nonzero(out["keep"].cpu().numpy())[0]
+    tokens = torch.from_numpy(data.tokens).to(dev)
+    chunk = net.segmentation_chunk
+    res = {m: dict(flips=0, max_diff=0.0, ms=[]) for m in scopes}
+    largest = 0.0
+    for start in range(0, len(keep), chunk):
+        part = keep[start : start + chunk]
+        idx = np.zeros(chunk, dtype=np.int64)
+        idx[: len(part)] = part
+        valid = np.arange(chunk) < len(part)
+        sel = torch.from_numpy(idx).to(dev)
+        hot, feats = tokens[sel], out["token_features"][sel]
+        density = {}
+        for mode, scope in scopes.items():
+            def decode(scope=scope):
+                with torch.no_grad(), scope():
+                    return net.model.forward_segmentation(out["pyramid"], hot, feats).float()
+            logits, ms = host_s(decode)
+            res[mode]["ms"].append(ms * 1e3)
+            density[mode] = net.postprocess(out, hot, logits, valid)[0]
+        largest = max(largest, float(density["float32"].abs().max()))
+        for mode in scopes:
+            res[mode]["flips"] += int(((density[mode] > 0) != (density["float32"] > 0)).sum())
+            res[mode]["max_diff"] = max(res[mode]["max_diff"], float(
+                (density[mode] - density["float32"]).abs().max()))
+    return {m: dict(flips=r["flips"], max_diff=r["max_diff"],
+                    max_rel=r["max_diff"] / max(largest, 1e-9),
+                    ms_per_chunk=statistics.median(r["ms"])) for m, r in res.items()}
+
+
 def phase_modeling(dev, kernels: dict, card: str) -> None:
     from pharmaconet_tpu_torch.module import PharmacoNet
     from pharmaconet_tpu_torch.network.convert import (
@@ -904,17 +969,13 @@ def phase_modeling(dev, kernels: dict, card: str) -> None:
         f"{len(infos_ref)} hotspots equal (type, position, score), max map diff {map_err:.3g}, "
         f"max node centre diff {node_err:.3g}")
 
-    tf32 = PharmacoNet(weight_path=ckpt, device=dev, verbose=False)
-    infos_tf32 = tf32.create_density_maps(data)
-    by_pos = {h["hotspot_position"]: h["point_map"] for h in infos_ref}
-    diffs = [float(np.abs(h["point_map"] - by_pos[h["hotspot_position"]]).max())
-             for h in infos_tf32 if h["hotspot_position"] in by_pos]
-    flips = sum(int(((h["point_map"] > 0) != (by_pos[h["hotspot_position"]] > 0)).sum())
-                for h in infos_tf32 if h["hotspot_position"] in by_pos)
-    log(f"  TF32 mask decoder (default) vs float32: {len(infos_tf32)} vs {len(infos_ref)} "
-        f"hotspots, max map diff {max(diffs, default=0.0):.3g}, {flips} voxels cross the "
-        f"0.5 threshold (not gated)")
-    stages = modeling_stages(tf32, pdb, center)
+    default = PharmacoNet(weight_path=ckpt, device=dev, verbose=False)
+    modes = decoder_precisions(default, data)
+    log(f"  mask decoder on the {len(infos_ref)} kept hotspots, against float32 (not gated): "
+        + "; ".join(f"{m}: {r['flips']} voxels cross the 0.5 threshold, max map diff "
+                    f"{r['max_diff']:.3g} (rel {r['max_rel']:.3g}), {r['ms_per_chunk']:.2f} ms "
+                    f"per chunk of {default.segmentation_chunk}" for m, r in modes.items()))
+    stages = modeling_stages(default, pdb, center)
     log("  stages of one pocket (host clock, median of 3, default precisions): "
         + ", ".join(f"{k} {v:.2f}" + ("" if k == "chunks" else " ms") for k, v in stages.items()))
 
@@ -1203,8 +1264,9 @@ def embed_card_vs_cpu(dev) -> dict:
 
 
 def phase_smiles(dev, kernels: dict, card: str) -> dict:
-    """C1: 64 fragment SMILES embedded on the card, scored through K1
-    against GraphMatcher. C4: solo embeds bit-identical to the batched one.
+    """The battery's C1 (64 fragment SMILES embedded on the card, scored
+    through K1 against GraphMatcher) and C4 (solo embeds bit-identical to
+    the batched one), from probes/chip_ci.py.
     The card against the CPU on the same draws. Then 2048 fragment SMILES
     through `prepack --smiles --embed_backend torch` and `screening
     --smiles` (K1), every score against the reference engine on the
@@ -1216,12 +1278,10 @@ def phase_smiles(dev, kernels: dict, card: str) -> dict:
     from pharmaconet_tpu_torch.chem.fragments import enumerate_fragment_smiles
     from pharmaconet_tpu_torch.cli import prepack, screening
     from pharmaconet_tpu_torch.ops import screen_cuda
+    from pharmaconet_tpu_torch.probes import chip_ci
     from pharmaconet_tpu_torch.probes.timing import time_ms
     from pharmaconet_tpu_torch.scoring.batch_screen import BatchScreener, PackedModel
-    from pharmaconet_tpu_torch.scoring.graph_match import GraphMatcher
     from pharmaconet_tpu_torch.scoring.library import load_library
-    from pharmaconet_tpu_torch.scoring.parse_pool import iter_embedded
-    from pharmaconet_tpu_torch.synthetic import make_synthetic_model
 
     out, t_part = {}, time.perf_counter()
 
@@ -1231,32 +1291,14 @@ def phase_smiles(dev, kernels: dict, card: str) -> dict:
         out.setdefault("part_s", {})[name] = now - t_part
         t_part = now
 
-    model = make_synthetic_model(num_clusters=20, seed=3)  # probes/chip_ci.py's model
-    entries = enumerate_fragment_smiles(64, seed=11)
-    ligs = list(iter_embedded(entries, seed=2025, backend="torch", device=dev))
-    if len(ligs) < 56:
-        raise AssertionError(f"C1: only {len(ligs)} of 64 SMILES embedded")
-    screen_cuda.reset_launch_counts()
-    got = BatchScreener(model, device=dev).score_ligands([lig for _, lig in ligs])
-    torch.cuda.synchronize()
-    k1 = screen_cuda.LAUNCHES["score_tiles_fused_rows"]
-    worst = check_scores("C1", dict(zip([n for n, _ in ligs], got)),
-                         {n: GraphMatcher(model, lig).run() for n, lig in ligs})
-    if k1 < 1:
-        raise AssertionError("C1: the screener never launched K1")
-    log(f"  C1: {len(ligs)} of 64 embedded on the card, K1 launches {k1}, "
-        f"max |score - GraphMatcher| {worst:.3g}")
+    model = chip_ci.battery_model()
+    c1 = chip_ci.kernel_vs_matcher(dev, model)
+    log(f"  C1: {c1['n']} of 64 embedded on the card, K1 launches {c1['k1_launches']}, "
+        f"max |score - GraphMatcher| {c1['max_abs_diff']:.3g}")
     part("C1")
 
-    entries = enumerate_fragment_smiles(16, seed=23)
-    batched = dict(iter_embedded(entries, seed=77, backend="torch", device=dev))
-    for k in (0, 7, 15):
-        name, smi = entries[k]
-        solo = dict(iter_embedded([(name, smi)], seed=77 + k, backend="torch", device=dev))
-        if (name in solo) != (name in batched) or (name in solo and not np.array_equal(
-                solo[name].graph.atom_positions, batched[name].graph.atom_positions)):
-            raise AssertionError(f"C4: {name}'s solo embed differs from the batched one")
-    log(f"  C4: solo = batched bit for bit for k = 0, 7, 15 ({len(batched)} of 16 embedded)")
+    c4 = chip_ci.embed_determinism(dev)
+    log(f"  C4: solo = batched bit for bit for k = 0, 7, 15 ({c4['n']} of 16 embedded)")
     part("C4")
 
     out["card_busy"] = embed_card_vs_cpu(dev)
@@ -2324,6 +2366,156 @@ def phase_shard(pm, packed, names, ref, dev, kernels: dict, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 13: the battery, the checkpoint verifier and the examples
+# --------------------------------------------------------------------------
+BATTERY_KERNELS = {"K1": "score_tiles_fused_rows", "K2": "score_tiles_v3", "K6": "voxelize_pallas"}
+EXAMPLE_DIR = REPO / "examples"
+
+
+def screen_and_k6_counts(fn):
+    """(fn's result, host s, launches of K1, K2 and K6 it made): counts
+    reset just before, read just after."""
+    from pharmaconet_tpu_torch.ops import screen_cuda, voxelize_cuda
+
+    screen_cuda.reset_launch_counts()
+    voxelize_cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**screen_cuda.LAUNCHES, **voxelize_cuda.LAUNCHES}
+    return out, wall, {k: counts[name] for k, name in BATTERY_KERNELS.items()}
+
+
+def battery_verify(dev, check: Checks) -> dict:
+    """python -m pharmaconet_tpu_torch.cli.verify_checkpoint's main on phase
+    7's checkpoint and seed-0 pocket (here with its ligand, as reference)
+    and a TacoGFN .pth from _init_random(7)."""
+    from pharmaconet_tpu_torch.cli import verify_checkpoint
+    from pharmaconet_tpu_torch.proxy.proxies import TacoGFN_Proxy
+    from pharmaconet_tpu_torch.synthetic import write_synthetic_site
+
+    protein, ligand = write_synthetic_site(WORK / "verify_site", seed=POCKET_SEED)
+    taco = TacoGFN_Proxy(device="cpu")
+    taco._init_random(7)
+    torch.save({"model": taco.model.state_dict()}, WORK / "taco.pth")
+    report_path = WORK / "verify.json"
+    args = verify_checkpoint.build_parser().parse_args([
+        "--checkpoint", str(WORK / "ckpt.tar"), "--protein", str(protein), "--ref_ligand",
+        str(ligand), "--proxy", str(WORK / "taco.pth"), "--proxy_type", "tacogfn",
+        "--out", str(report_path), "--device", str(dev)])
+    rc, wall, launches = screen_and_k6_counts(lambda: verify_checkpoint.main(args))
+    report = json.loads(report_path.read_text())
+    stages = {s["stage"]: s for s in report["stages"]}
+    want = ["load_convert", "activation_parity", "our_modeling", "tf32_probe", "proxy_convert"]
+    if list(stages) != want:
+        raise AssertionError(f"verify_checkpoint stages {list(stages)}, expected {want}")
+    if stages["activation_parity"].get("skipped") != "reference src absent":
+        raise AssertionError("verify_checkpoint ran activation parity without a reference")
+    if launches["K6"] != 2:  # our_modeling and tf32_probe each run the trunk once
+        raise AssertionError(f"verify_checkpoint launched K6 {launches['K6']} times, not twice")
+    for name, stage in stages.items():
+        check.true(f"verify_checkpoint stage {name}", stage["ok"], str(stage))
+    if rc != (0 if report["ok"] else 1):
+        raise AssertionError(f"verify_checkpoint exited {rc} with report ok={report['ok']}")
+    tf32 = stages["tf32_probe"]
+    log(f"  verify_checkpoint ({wall:.1f} s, rc {rc}, K6 launches {launches['K6']}): "
+        + "; ".join(f"{n} {'ok' if st['ok'] else 'FAIL'}"
+                    + "".join(f" {k}={v}" for k, v in st.items() if k not in ("stage", "ok"))
+                    for n, st in stages.items()))
+    log(f"  tf32_probe: {tf32['thresholded_voxel_flips']} thresholded-voxel flips, largest "
+        f"density difference {tf32['max_density_delta']}")
+    return dict(rc=rc, seconds=wall, launches=launches, stages=report["stages"])
+
+
+def load_example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, EXAMPLE_DIR / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def battery_examples(dev) -> dict:
+    """examples/end_to_end_torch.py on the card (K1, K6 counted), its scores
+    against the reference engine on its .pm and library; then both
+    get_cache_*_torch.py examples (K6 once each)."""
+    import runpy
+
+    from pharmaconet_tpu_torch.pharmacophore.model import PharmacophoreModel
+    from pharmaconet_tpu_torch.scoring.batch_screen import BatchScreener, PackedLigand
+    from pharmaconet_tpu_torch.scoring.ligand import Ligand
+
+    e2e = load_example("end_to_end_torch")
+    out_dir = WORK / "end_to_end_torch"
+    args = e2e.build_parser().parse_args(["--device", str(dev), "--out_dir", str(out_dir)])
+    rc, wall, launches = screen_and_k6_counts(lambda: e2e.main(args))
+    if rc != 0:
+        raise AssertionError(f"end_to_end_torch.py exited {rc}")
+    if launches["K1"] < 1 or launches["K6"] != 1:
+        raise AssertionError(f"end_to_end_torch.py launched K1 {launches['K1']} and K6 "
+                             f"{launches['K6']} times (K1 at least once, K6 once)")
+    model = PharmacophoreModel.load(str(out_dir / "pocket_model.pm"))
+    paths = sorted((out_dir / "library").glob("*.sdf"))
+    packed = [PackedLigand.from_ligand(Ligand.load_from_file(p)) for p in paths]
+    ref = BatchScreener(model, engine="reference", device=dev).score_packed(packed)
+    worst = check_scores("end_to_end_torch.py", read_csv(out_dir / "scores.csv"),
+                         {str(p): s for p, s in zip(paths, ref)})
+    out = {"end_to_end": dict(seconds=wall, launches=launches, nodes=len(model.nodes),
+                              ligands=len(paths), max_abs_diff_reference=worst)}
+    log(f"  end_to_end_torch.py: {out['end_to_end']}")
+    for name in ("get_cache_tacogfn_torch", "get_cache_sbddreward_torch"):
+        argv = sys.argv
+        sys.argv = [name, "--device", str(dev), "--out_dir", str(WORK / name)]
+        try:
+            _, wall, launches = screen_and_k6_counts(
+                lambda: runpy.run_path(str(EXAMPLE_DIR / f"{name}.py"), run_name="__main__"))
+        finally:
+            sys.argv = argv
+        once_per_pocket(f"{name}.py", launches["K6"])
+        if not (WORK / name / "cache_db.pkl").exists():
+            raise AssertionError(f"{name}.py wrote no cache database")
+        out[name] = dict(seconds=wall, launches=launches)
+        log(f"  {name}.py: {out[name]}")
+    return out
+
+
+def phase_battery(dev, kernels: dict, card: str) -> dict:
+    """The port's battery (C1-C7) as a subprocess, the checkpoint verifier
+    and the examples; K1, K2 and K6 add `launches_battery`."""
+    out: dict = {"card": card}
+    check = Checks("phase 13")
+    t0 = time.perf_counter()
+    summary = run_probe("chip_ci", dev)
+    out["battery_wall_s"] = time.perf_counter() - t0
+    out["checks"] = {k: {"ok": v["ok"], "seconds": v["seconds"]} for k, v in
+                     summary["checks"].items()}
+    if summary["n_fail"] or summary["n_checks"] != 7:
+        raise AssertionError(f"chip_ci: {summary['n_fail']} of {summary['n_checks']} checks "
+                             f"failed: {summary['checks']}")
+    out["c6"] = {k: summary["checks"]["C6_seg_precision"][k]
+                 for k in ("max_rel", "voxel_flips", "on_voxels", "allowed_flips",
+                           "one_pass_max_rel", "one_pass_voxel_flips")}
+    out["verify_checkpoint"] = battery_verify(dev, check)
+    out["examples"] = battery_examples(dev)
+    launches = {k: summary["launches"][name] for k, name in BATTERY_KERNELS.items()}
+    out["launches"] = {"chip_ci": launches, "verify_checkpoint":
+                       out["verify_checkpoint"]["launches"],
+                       **{k: v["launches"] for k, v in out["examples"].items()}}
+    for k, name in BATTERY_KERNELS.items():
+        kernels[name]["launches_battery"] = sum(v[k] for v in out["launches"].values())
+        kernels[name]["launches_battery_paths"] = {p: v[k] for p, v in out["launches"].items()}
+        if kernels[name]["launches_battery"] < 1:
+            raise AssertionError(f"phase 13 never launched {k} ({name})")
+    log(f"  battery checks (s): {out['checks']}; C6 {out['c6']}")
+    log(f"  launches: {out['launches']}")
+    check.raise_misses()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2366,6 +2558,8 @@ def main() -> int:
         log("[12] sharded screening and sharded modeling on meshes of cuda:0")
         print(json.dumps({"shard": phase_shard(pm, packed, names, ref, dev, kernels, smi)}),
               flush=True)
+        log("[13] the battery (C1-C7), verify_checkpoint and the examples")
+        print(json.dumps({"battery": phase_battery(dev, kernels, smi)}), flush=True)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

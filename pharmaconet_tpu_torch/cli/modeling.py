@@ -56,8 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
                      help="checkpoint: upstream torch model.tar or the JAX package's .npz")
     env.add_argument("--force", action="store_true", help="overwrite existing outputs")
     env.add_argument("--segmentation_precision", choices=PRECISIONS, default="tensorfloat32",
-                     help="mask-decoder precision; tensorfloat32 matches the upstream "
-                          "network's own GPU convolutions (cudnn allow_tf32=True)")
+                     help="mask-decoder precision; tensorfloat32 (the JAX package's "
+                          "default) runs the decoder in float32, since one TF32 pass moves "
+                          "voxels across the maps' threshold")
     env.add_argument("--precision", choices=PRECISIONS, default="float32",
                      help="trunk and cavity/token head precision")
     env.add_argument("--device", type=str, default="cuda",

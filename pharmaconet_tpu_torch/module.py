@@ -10,8 +10,12 @@ The pipeline of the JAX package's `module.py`, run eagerly:
 Precision is set per stage and restored after it: the trunk and the
 cavity/token heads run in full f32 (`matmul_precision`, TF32 off for both
 matrix products and cuDNN convolutions), the mask decoder alone in
-`segmentation_precision` (TF32 by default, as the upstream network's
-convolutions run on a GPU).
+`segmentation_precision`, whose default 'tensorfloat32' runs the decoder
+in float32. The name is the JAX package's default, there three bf16
+passes per product that keep the maps at f32's. One TF32 pass, which the
+upstream network runs on a GPU (cuDNN's allow_tf32), moves voxels across
+the maps' 0.5 threshold on a card (probes/chip_ci.py C6 and chip_smoke.py
+phase 7 read how many), so the port departs from it on purpose.
 """
 
 from __future__ import annotations
@@ -115,11 +119,11 @@ class PharmacoNet:
     """End-to-end pharmacophore modeling on one torch device.
 
     weight_path: an upstream torch checkpoint (model.tar) or the JAX
-    package's .npz. None looks for a provisioned checkpoint as the JAX
-    package does (`utils/download_weight.resolve_weight_path`:
-    PMNET_TPU_WEIGHT, then $PMNET_TPU_HOME/model.{npz,tar}) and, finding
-    none, draws the JAX package's random parameters (`_random_init_seed`);
-    nothing is downloaded.
+    package's .npz. None looks for a checkpoint as the JAX package does
+    (`utils/download_weight.resolve_weight_path`: PMNET_TPU_WEIGHT, then
+    $PMNET_TPU_HOME/model.{npz,tar}, then the upstream artifact through
+    gdown where it is installed) and, finding none, draws the JAX
+    package's random parameters (`_random_init_seed`).
     voxelizer: 'kernel' (K6 on CUDA tensors, its plain version on CPU
     tensors) or 'reference' (the plain torch version on any device).
     density_wire: 'sparse' ships each thresholded map to the host as
@@ -186,9 +190,9 @@ class PharmacoNet:
     # ------------------------------------------------------------------
     def _load_weights(self, weight_path):
         if weight_path is None:
-            # provisioned weights (PMNET_TPU_WEIGHT, then $PMNET_TPU_HOME)
+            # provisioned weights (PMNET_TPU_WEIGHT, $PMNET_TPU_HOME), else a download
             try:
-                weight_path = resolve_weight_path(None)
+                weight_path = resolve_weight_path(None, self.verbose)
             except (FileNotFoundError, RuntimeError):
                 weight_path = None
         if weight_path is None:
@@ -338,8 +342,11 @@ class PharmacoNet:
     @torch.no_grad()
     def segment_logits(self, out: dict[str, Any], hot_tokens: torch.Tensor,
                        hot_features: torch.Tensor) -> torch.Tensor:
-        """Mask decoder in `segmentation_precision`: [K, D, H, W] f32 logits."""
-        with precision_scope(self.segmentation_precision, self.device):
+        """Mask decoder in `segmentation_precision`, 'tensorfloat32' run as
+        float32 (module docstring): [K, D, H, W] f32 logits."""
+        precision = self.segmentation_precision
+        with precision_scope("float32" if precision == "tensorfloat32" else precision,
+                             self.device):
             logits = self.model.forward_segmentation(out["pyramid"], hot_tokens, hot_features)
         return logits.float()
 

@@ -7,7 +7,8 @@ clusters of 1-2 nodes, 4 conformers). `write_random_library` writes
 random small molecules as .sdf/.mol2 files for the `-d` route. The same
 seeds give the same inputs as the JAX package's generators.
 `write_synthetic_pocket` writes a protein PDB around an empty cavity for
-pocket modeling.
+pocket modeling, `write_synthetic_site` the same with a ligand at its
+centre and that ligand's own file, for runs that take a reference ligand.
 """
 
 from __future__ import annotations
@@ -418,3 +419,19 @@ def append_het_ligands(
     header += [f"HETNAM     {k:>3s} {v}" for k, v in (names or {}).items()]
     body = [line for line in Path(path).read_text().splitlines() if line != "END"]
     Path(path).write_text("\n".join(header + body + atoms + ["END"]) + "\n")
+
+
+def write_synthetic_site(directory: str | Path, seed: int = 0, **pocket) -> tuple[Path, Path]:
+    """A protein and its reference ligand for runs without real structures:
+    `write_synthetic_pocket(seed, **pocket)` with one HET ligand ('LIG',
+    chain A, residue 901) at the cavity's centre, as
+    `<directory>/pocket.pdb`, and the ligand's HETATM records alone as
+    `<directory>/ligand.pdb`. Returns (protein path, ligand path)."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    protein, ligand = directory / "pocket.pdb", directory / "ligand.pdb"
+    info = write_synthetic_pocket(protein, seed=seed, **pocket)
+    append_het_ligands(protein, [("LIG", "A", 901, info["center"])], {"LIG": "SYNTHETIC LIGAND"})
+    het = [line for line in protein.read_text().splitlines() if line.startswith("HETATM")]
+    ligand.write_text("\n".join(het + ["END"]) + "\n")
+    return protein, ligand

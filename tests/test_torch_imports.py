@@ -18,7 +18,9 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "pharmaconet_tpu_torch"
-PORT_FILES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
+PORT_FILES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")) + [
+    "chip_smoke.py", *sorted(p.relative_to(REPO).as_posix()
+                             for p in (REPO / "examples").glob("*_torch.py"))]
 
 
 def _imported_modules(path: Path) -> set[str]:
@@ -98,6 +100,9 @@ def test_every_module_imports_without_jax_and_builds_nothing():
     sharded = {f"pharmaconet_tpu_torch.{m}" for m in (
         "parallel.screening", "parallel.modeling", "utils.profiling", "cli.convert_weights")}
     assert sharded <= names, sharded - names
+    battery = {f"pharmaconet_tpu_torch.{m}" for m in (
+        "utils.crosscheck", "utils.download_weight", "cli.verify_checkpoint", "probes.chip_ci")}
+    assert battery <= names, battery - names
 
 
 def test_cuda_without_card_raises():

@@ -326,8 +326,9 @@ def test_run_extraction_matches_jax(case, port):
 
 
 def test_precision_is_scoped_to_each_stage(case, port, monkeypatch):
-    """The trunk and heads run with TF32 off, the mask decoder with TF32 on
-    (its default), and every flag is back as it was after `run`."""
+    """The trunk and heads run with TF32 off, and the mask decoder too at
+    its default 'tensorfloat32' (run as float32); every flag is back as it
+    was after `run`."""
     seen = {}
 
     def spy(name, fn):
@@ -343,7 +344,7 @@ def test_precision_is_scoped_to_each_stage(case, port, monkeypatch):
               torch.get_float32_matmul_precision())
     port.run(case.pdb, center=case.info["center"])
     assert seen["forward_feature"] == (False, False, "highest")
-    assert seen["forward_segmentation"] == (True, True, "high")
+    assert seen["forward_segmentation"] == (False, False, "highest")
     assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
             torch.get_float32_matmul_precision()) == before
 
