@@ -136,9 +136,10 @@ Phases, in order; any failure exits non-zero:
  13. battery — the port's on-chip battery, python -m
                pharmaconet_tpu_torch.probes.chip_ci (C1-C7, not --fast) as a
                subprocess, its summary line read: every check ok, its
-               seconds, C6's deviation and flips (and one TF32 pass's,
-               not gated), its K1/K2/K6 launches (each check's counted
-               from 0);
+               seconds (C5: the screening CLI on the card in fresh
+               processes forked from one fresh interpreter, one CSV), C6's
+               deviation and flips (and one TF32 pass's, not gated), its
+               K1/K2/K6 launches (each check's counted from 0);
                cli/verify_checkpoint.py's main on phase 7's checkpoint and
                seed-0 pocket with its ligand (synthetic.write_synthetic_site)
                and a TacoGFN .pth from _init_random(7): every stage ok,
@@ -148,7 +149,9 @@ Phases, in order; any failure exits non-zero:
                on the card (K1 and K6 counted: K6 once), its CSV against the
                reference engine on its .pm and library; both
                get_cache_*_torch.py examples (K6 once each, a cache database
-               written); one {"battery": ...} line
+               written); the battery's store screened by the CLI on the
+               card and on the CPU in fresh processes, the two CSVs equal
+               within the repo tolerance; one {"battery": ...} line
 Then prints the {"kernels": [...]} line, the nvidia-smi name/power line, and
 last {"ok": true, "device": {...}}. A kernel's `ms` is one call between two
 CUDA events (host work included), `stream_ms` its time per call back to
@@ -2483,9 +2486,49 @@ def battery_examples(dev) -> dict:
     return out
 
 
+def battery_card_vs_cpu(dev, check: Checks) -> dict:
+    """The battery's store (chip_ci.write_battery_store, leaves baked on
+    the card) screened by the CLI on the card and on the CPU, each run in a
+    fresh process forked from one fresh interpreter
+    (probe_reproducible.fork_screens, two runs per device): each device's
+    runs give one CSV, and the card's scores equal the CPU's within the
+    repo tolerance, ligand by ligand."""
+    from pharmaconet_tpu_torch.probes.chip_ci import battery_model, write_battery_store
+    from pharmaconet_tpu_torch.probes.probe_reproducible import (
+        csv_scores,
+        fork_screens,
+        summarize,
+    )
+
+    root = WORK / "battery_card_vs_cpu"
+    model = battery_model()
+    root.mkdir(parents=True)
+    model.save(str(root / "model.pm"))
+    write_battery_store(root / "tiles", model, dev)
+    out: dict = {}
+    scores = {}
+    for device in (str(dev), "cpu"):
+        t0 = time.perf_counter()
+        runs = fork_screens(root / "model.pm", root / "tiles", root / device, 2, device)
+        s = summarize(runs)
+        out[f"{device}_s"] = time.perf_counter() - t0
+        check.true(f"battery store screened on {device}: one CSV of 256 rows",
+                   s["distinct_csvs"] == 1 and s["rows"] == 256, str(s))
+        scores[device] = csv_scores(runs[0]["csv"])
+    card, cpu = dict(scores[str(dev)]), dict(scores["cpu"])
+    check.true("battery store: the card's CSV names the CPU's ligands", card.keys() == cpu.keys(),
+               f"{len(card.keys() ^ cpu.keys())} names in one CSV only")
+    names = [n for n in cpu if n in card]
+    out["max_abs_diff"] = check.close("battery store: card scores vs CPU scores",
+                                      [card[n] for n in names], [cpu[n] for n in names])
+    log(f"  battery store card vs CPU: {out}")
+    return out
+
+
 def phase_battery(dev, kernels: dict, card: str) -> dict:
-    """The port's battery (C1-C7) as a subprocess, the checkpoint verifier
-    and the examples; K1, K2 and K6 add `launches_battery`."""
+    """The port's battery (C1-C7) as a subprocess, the checkpoint verifier,
+    the examples and the battery's store screened on the card and on the
+    CPU; K1, K2 and K6 add `launches_battery`."""
     out: dict = {"card": card}
     check = Checks("phase 13")
     t0 = time.perf_counter()
@@ -2501,6 +2544,7 @@ def phase_battery(dev, kernels: dict, card: str) -> dict:
                            "one_pass_max_rel", "one_pass_voxel_flips")}
     out["verify_checkpoint"] = battery_verify(dev, check)
     out["examples"] = battery_examples(dev)
+    out["card_vs_cpu"] = battery_card_vs_cpu(dev, check)
     launches = {k: summary["launches"][name] for k, name in BATTERY_KERNELS.items()}
     out["launches"] = {"chip_ci": launches, "verify_checkpoint":
                        out["verify_checkpoint"]["launches"],
@@ -2510,7 +2554,9 @@ def phase_battery(dev, kernels: dict, card: str) -> dict:
         kernels[name]["launches_battery_paths"] = {p: v[k] for p, v in out["launches"].items()}
         if kernels[name]["launches_battery"] < 1:
             raise AssertionError(f"phase 13 never launched {k} ({name})")
-    log(f"  battery checks (s): {out['checks']}; C6 {out['c6']}")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  battery checks (s): {out['checks']}; C6 {out['c6']}; phase 13 "
+        f"{out['phase_s']:.1f} s")
     log(f"  launches: {out['launches']}")
     check.raise_misses()
     return out

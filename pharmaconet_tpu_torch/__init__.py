@@ -8,12 +8,17 @@ through hand-written CUDA kernels (`csrc/voxelize.cu`,
 `csrc/screen_fused.cu`); the trunk also serves as a pocket encoder
 (`api.get_pmnet_dev`, feature extraction) for the docking proxies
 (`proxy/`). Entry points take an explicit `device` and use the card unless
-the caller asks for the CPU.
+the caller asks for the CPU. Importing the package sets up the CPU's
+vector math once (`device.set_up_cpu_vector_math`), so that a screen's
+scores do not depend on the process that computes them.
 """
 
 __version__ = "0.1.0"
 
+from .device import set_up_cpu_vector_math
 from .pharmacophore.model import PharmacophoreModel
+
+set_up_cpu_vector_math()  # before any module of the port computes
 
 _LAZY = {
     "PharmacoNet": ("pharmaconet_tpu_torch.module", "PharmacoNet"),

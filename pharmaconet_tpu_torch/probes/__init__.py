@@ -34,9 +34,7 @@ RTOL, ATOL = 2e-5, 1e-4  # repo score tolerance
 
 
 def agreement(got: torch.Tensor, want: torch.Tensor) -> tuple[float, int, bool]:
-    """(max |diff|, -1 mismatches, within rtol/atol with no mismatch).
-    Not bit-equality: the CPU's vectorised exp differs by ulps from call
-    to call with the memory alignment of its operands."""
+    """(max |diff|, -1 mismatches, within rtol/atol with no mismatch)."""
     diff = float((got - want).abs().max())
     mism = int(((got == -1.0) != (want == -1.0)).sum())
     return diff, mism, mism == 0 and torch.allclose(got, want, rtol=RTOL, atol=ATOL)

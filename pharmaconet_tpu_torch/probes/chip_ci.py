@@ -17,10 +17,14 @@ on the card in one command (the counterpart of the repo's
                           or bf16 product anywhere in the leaf chain trips it
   C4 embed_determinism    the torch embedder: solo embeds bit-identical to
                           the batched one
-  C5 csv_roundtrip        `python -m pharmaconet_tpu_torch.cli.screening
-                          --library_tiles` on C2's store, run twice: two
-                          byte-identical CSVs of 256 rows; on a card only
-                          (CPU_CSV_SKIP says why)
+  C5 csv_roundtrip        the screening CLI (`cli.screening.main`,
+                          --library_tiles) on C2's store in C5_RUNS fresh
+                          processes, forked from one fresh interpreter
+                          that has imported the port and made no other
+                          torch call, so each run's first large call of
+                          every torch operation is the first in its
+                          process (probe_reproducible.fork_screens):
+                          byte-identical CSVs of 256 rows
   C6 seg_precision        the mask decoder at 'tensorfloat32' (the default,
                           run as float32) against float32 on one
                           segmentation chunk (16 random tokens) of a
@@ -35,12 +39,12 @@ on the card in one command (the counterpart of the repo's
                           host equals the dense copy bit for bit; skipped by
                           --fast
 
-Each check prints ok/FAIL/skip; the last line is one JSON summary (each
+Each check prints ok or FAIL; the last line is one JSON summary (each
 check's seconds, details and kernel launches, counted from 0 at its
 start). Exit 1 if any check fails. Files go to a temporary directory,
 removed at the end; nothing is written into the repository. `--device
 cpu` runs the checks with the kernels' plain versions (TF32 does not
-exist there), C5 aside.
+exist there).
 """
 
 from __future__ import annotations
@@ -49,8 +53,6 @@ import argparse
 import copy
 import json
 import shutil
-import subprocess
-import sys
 import tempfile
 import time
 import traceback
@@ -64,11 +66,8 @@ from ..device import resolve_device
 
 RTOL, ATOL = 2e-5, 1e-4  # repo score tolerance
 C3_REL = 1e-5
+C5_RUNS = 4  # fresh processes of C5's screening CLI
 C6_REL = 6e-2
-CPU_CSV_SKIP = ("on the card only: torch's CPU exp (MKL's vector math, in the plain "
-                "versions of K1-K3) does not give the same bits on every call, so two CPU "
-                "screens of one store may differ within the tolerance (ROADMAP Queue 3)")
-REPO = Path(__file__).resolve().parents[2]
 
 
 def reset_launch_counts() -> None:
@@ -212,29 +211,20 @@ def leaf_einsum_f32(store_dir: Path, model, device) -> dict:
 
 
 def csv_roundtrip(store_dir: Path, model, device, tmp: Path) -> dict:
-    """C5: the screening CLI on the store, twice, in fresh processes."""
+    """C5: the screening CLI on the store in C5_RUNS fresh processes."""
+    from .probe_reproducible import fork_screens, summarize
+
     model.save(str(tmp / "model.pm"))
-    outs = []
-    for run in range(2):
-        out = tmp / f"scores_{run}.csv"
-        proc = subprocess.run(
-            [sys.executable, "-m", "pharmaconet_tpu_torch.cli.screening", "-p",
-             str(tmp / "model.pm"), "--library_tiles", str(store_dir), "-o", str(out),
-             "--device", str(device)],
-            cwd=REPO, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise AssertionError(f"screening CLI rc={proc.returncode}: {proc.stderr[-2000:]}")
-        outs.append(out.read_bytes())
-    if outs[0] != outs[1]:
-        rows = [(a.split(b",")[-1], b.split(b",")[-1]) for a, b in
-                zip(outs[0].splitlines()[1:], outs[1].splitlines()[1:]) if a != b]
-        worst = max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-30) for a, b in rows)
-        raise AssertionError(f"re-run produced a different CSV: {len(rows)} rows differ, by "
-                             f"up to {worst:.3g} relative")
-    n = len(outs[0].splitlines()) - 1
-    if n != 256:
-        raise AssertionError(f"expected 256 rows, got {n}")
-    return {"rows": n}
+    s = summarize(fork_screens(tmp / "model.pm", store_dir, tmp / "c5", C5_RUNS, str(device)))
+    if s["distinct_csvs"] != 1:
+        d = s["differing_runs"]
+        raise AssertionError(f"{s['distinct_csvs']} different CSVs in {C5_RUNS} runs: "
+                             f"{len(d)} differ from the most common one, by up to "
+                             f"{max(x['rows'] for x in d)} rows and "
+                             f"{max(x['max_rel'] for x in d):.3g} relative")
+    if s["rows"] != 256:
+        raise AssertionError(f"expected 256 rows, got {s['rows']}")
+    return {"rows": s["rows"], "runs": C5_RUNS}
 
 
 def seg_chunk(net, data, seed: int = 0):
@@ -350,10 +340,6 @@ class Battery:
         self.results[name] = {"ok": ok, "seconds": dt, **detail, "launches": launches}
         print(f"[{'ok' if ok else 'FAIL'}] {name} ({dt:.1f}s) {detail}", flush=True)
 
-    def skip(self, name: str, reason: str) -> None:
-        self.results[name] = {"ok": True, "seconds": 0.0, "skipped": reason, "launches": {}}
-        print(f"[skip] {name}: {reason}", flush=True)
-
 
 def run_battery(device, fast: bool) -> dict:
     """Every check (C6 and C7 unless `fast`) on `device`; returns the summary."""
@@ -371,10 +357,7 @@ def run_battery(device, fast: bool) -> dict:
         battery.run("C2_leaf_store_vs_dfs", c2)
         battery.run("C3_leaf_einsum_f32", lambda: leaf_einsum_f32(store, model, device))
         battery.run("C4_embed_determinism", lambda: embed_determinism(device))
-        if device.type == "cpu":
-            battery.skip("C5_csv_roundtrip", CPU_CSV_SKIP)
-        else:
-            battery.run("C5_csv_roundtrip", lambda: csv_roundtrip(store, model, device, tmp))
+        battery.run("C5_csv_roundtrip", lambda: csv_roundtrip(store, model, device, tmp))
         if not fast:
             state: dict = {}
 

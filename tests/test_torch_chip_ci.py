@@ -1,9 +1,9 @@
 """The port's on-chip battery (`pharmaconet_tpu_torch.probes.chip_ci`) on
 the CPU, and the mask decoder's precision it guards.
 
-`--device cpu --fast` runs C1-C4 at their sizes with the kernels' plain
-versions; every check must pass. C5 reports itself skipped there, with
-its reason (`chip_ci.CPU_CSV_SKIP`). C3 must trip on a TF32 product in the
+`--device cpu --fast` runs C1-C5 at their sizes with the kernels' plain
+versions; every check must pass, C5's screens in fresh processes giving
+one CSV of 256 rows. C3 must trip on a TF32 product in the
 leaf chain. C6/C7 run on a small network (embed 8, depths (2, 2), grid 32;
 random parameters with the mask logits' bias at 1.0 so maps are not
 empty): TF32 does not exist on the CPU, so C6 sees no deviation, one TF32
@@ -45,8 +45,8 @@ def two_threads():
 
 
 def test_battery_fast_on_cpu(capsys, two_threads):
-    """C1-C4 on the CPU, each ok, and C5 skipped with its reason; the last
-    line is the JSON summary."""
+    """C1-C5 on the CPU, each ok, C5 with one CSV of 256 rows from its
+    fresh processes; the last line is the JSON summary."""
     assert chip_ci.main(["--device", "cpu", "--fast"]) == 0
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["device"] == "cpu" and summary["fast"] and summary["n_fail"] == 0
@@ -54,7 +54,9 @@ def test_battery_fast_on_cpu(capsys, two_threads):
     assert list(checks) == ["C1_kernel_vs_matcher", "C2_leaf_store_vs_dfs",
                             "C3_leaf_einsum_f32", "C4_embed_determinism", "C5_csv_roundtrip"]
     assert all(c["ok"] for c in checks.values())
-    assert checks["C5_csv_roundtrip"]["skipped"] == chip_ci.CPU_CSV_SKIP
+    assert "skipped" not in checks["C5_csv_roundtrip"]
+    assert checks["C5_csv_roundtrip"]["rows"] == 256
+    assert checks["C5_csv_roundtrip"]["runs"] == chip_ci.C5_RUNS
     assert checks["C1_kernel_vs_matcher"]["n"] >= 56
     assert checks["C2_leaf_store_vs_dfs"]["n"] == 256
     assert checks["C3_leaf_einsum_f32"]["max_rel"] < chip_ci.C3_REL

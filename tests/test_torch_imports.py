@@ -103,6 +103,7 @@ def test_every_module_imports_without_jax_and_builds_nothing():
     battery = {f"pharmaconet_tpu_torch.{m}" for m in (
         "utils.crosscheck", "utils.download_weight", "cli.verify_checkpoint", "probes.chip_ci")}
     assert battery <= names, battery - names
+    assert "pharmaconet_tpu_torch.probes.probe_reproducible" in names
 
 
 def test_cuda_without_card_raises():
