@@ -152,6 +152,26 @@ Phases, in order; any failure exits non-zero:
                written); the battery's store screened by the CLI on the
                card and on the CPU in fresh processes, the two CSVs equal
                within the repo tolerance; one {"battery": ...} line
+ 14. scale   — the scale demos, each `python -m
+               pharmaconet_tpu_torch.probes.<demo>` as a subprocess on the
+               card, its report (its last line) printed on a line of its
+               own: demo_1m_screen (16,384 synthetic ligands, 4,096
+               distinct, 8 stored batches of 2048, a v3 store with leaves
+               baked on the card; --library_tiles killed by SIGKILL at 40%
+               of the rows in <out>.partial, resumed, and an uninterrupted
+               screen), demo_real_screen (4,096 fragment SMILES x 8
+               conformers: prepack --smiles on the card, prepack
+               --tiles_out in 4 batches of 1024, the same kill and resume,
+               32 spot checks against GraphMatcher on re-embedded
+               conformers) and demo_train_scale (the Trainer on [cuda:0,
+               cuda:0] at phase 11's widths over 8 pockets x 64 SMILES, 8
+               steps of 4 items, killed after the checkpoint at step 3, mid
+               epoch, and resumed, against an uninterrupted run; then
+               ShardedCacheBuilder over 32 pockets against a serial build
+               of 8): the kill mid-run, resumed CSVs byte-equal to the
+               uninterrupted ones, every spot check, the resumed parameters
+               within STEP_PARAM_TOL and the sharded caches equal to the
+               serial ones; K2 and K6 add `launches_scale`
 Then prints the {"kernels": [...]} line, the nvidia-smi name/power line, and
 last {"ok": true, "device": {...}}. A kernel's `ms` is one call between two
 CUDA events (host work included), `stream_ms` its time per call back to
@@ -167,7 +187,9 @@ and `launches_proxy_paths` (per path), `launches_train` and
 `launches_train_paths` (phase 11's). K1, K2, K3, K5 and K6 add
 `launches_shard` (phase 12's). K1, K2 and K6 add `launches_battery` (phase
 13's total) and `launches_battery_paths` (per path: the battery's process,
-verify_checkpoint and each example).
+verify_checkpoint and each example). K2 and K6 add `launches_scale` and
+`launches_scale_paths` (phase 14's, per demo: each demo's processes that
+exit normally log their counts, ops/launch_log.py; a killed one logs none).
 """
 
 from __future__ import annotations
@@ -2562,6 +2584,100 @@ def phase_battery(dev, kernels: dict, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 14: the scale demos
+# --------------------------------------------------------------------------
+# cut to keep the phase within 300 s (PERF.md §4): demo 1 to 16,384 ligands
+# (4,096 distinct, so that replicas are checked), demo 2 to 4,096 SMILES in
+# 4 batches and 32 spot checks, demo 3 to 8 steps killed after step 3 (mid
+# epoch) and 32 cache pockets
+SCALE_DEMOS = {
+    "demo_1m_screen": ["--n", "16384", "--distinct", "4096"],
+    "demo_real_screen": ["--n", "4096", "--batch_size", "1024", "--spot_checks", "32"],
+    "demo_train_scale": ["--n", "32", "--pockets", "8", "--ligands", "64", "--steps", "8",
+                         "--kill_step", "3", "--batch_size", "4"],
+}
+
+
+def run_scale_demo(name: str, dev) -> dict:
+    """One scale demo on the card in a subprocess; returns its report (its
+    last line), raising when it exited non-zero or its report is not ok."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"pharmaconet_tpu_torch.probes.{name}", *SCALE_DEMOS[name],
+         "--device", str(dev), "--work_dir", str(WORK / name)],
+        cwd=REPO, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    log(f"  python -m pharmaconet_tpu_torch.probes.{name} {' '.join(SCALE_DEMOS[name])} "
+        f"({time.perf_counter() - t0:.1f} s, rc {proc.returncode}):")
+    for line in lines[:-1]:
+        if line.startswith("[demo]"):
+            log(f"    {line}")
+    try:
+        report = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        report = {}
+    if proc.returncode != 0 or not report.get("ok"):
+        raise AssertionError(f"{name} exited {proc.returncode}, report "
+                             f"{report.get('error')}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    return report
+
+
+def check_screen_demo(check: Checks, name: str, report: dict, rows: int) -> None:
+    screen = report["screen"]
+    killed = screen["phase_a"]["rows_in_partial"]
+    check.true(f"{name}: the kill landed mid-run", screen["phase_a"]["killed"]
+               and 0 < killed < rows, f"{killed} of {rows} rows in .partial")
+    check.true(f"{name}: resumed CSV byte-equal to the uninterrupted one, {rows} rows",
+               screen["resumed_csv_byte_equal"] and screen["rows"] == rows,
+               f"{screen['rows']} rows")
+
+
+def phase_scale(dev, kernels: dict, card: str) -> dict:
+    """The three scale demos on the card; K2 and K6 add `launches_scale`."""
+    out: dict = {"card": card}
+    check = Checks("phase 14")
+    t0 = time.perf_counter()
+    reports = {}
+    for name in SCALE_DEMOS:
+        reports[name] = run_scale_demo(name, dev)
+        print(json.dumps({name: reports[name]}), flush=True)
+        out[f"{name}_s"] = reports[name]["wall_s"]
+    one_m, real, train = (reports[k] for k in SCALE_DEMOS)
+    check_screen_demo(check, "demo_1m_screen", one_m, one_m["n"])
+    check.true("demo_1m_screen: replica scores", one_m["replica_check"]["checked"] > 0,
+               str(one_m["replica_check"]))
+    check_screen_demo(check, "demo_real_screen", real, real["tiles_prepack"]["store_meta"][
+        "n_ligands"])
+    spot = real["spot_check"]
+    check.true("demo_real_screen: every spot check", spot["failed"] == 0 and spot["checked"] > 0
+               and spot["checked"] + spot["skipped"] == spot["sampled"], str(spot))
+    diff = train["train"]["resumed_vs_uninterrupted_max_diff"]
+    check.true("demo_train_scale: DP resume against the uninterrupted run",
+               diff <= STEP_PARAM_TOL, f"parameters {diff:.3g} apart")
+    check.true("demo_train_scale: sharded caches equal the serial ones",
+               train["cache_build"]["shared_keys_equal"], str(train["cache_build"]))
+    paths = {"score_tiles_v3": {k: reports[k]["launches"].get("score_tiles_v3", 0)
+                                for k in ("demo_1m_screen", "demo_real_screen")},
+             "voxelize_pallas": {"trainer": train["train"]["k6_launches"],
+                                 **{f"cache_{k}": v for k, v in
+                                    train["cache_build"]["k6_launches"].items()}}}
+    for name, per_path in paths.items():
+        kernels[name]["launches_scale"] = sum(per_path.values())
+        kernels[name]["launches_scale_paths"] = per_path
+        if kernels[name]["launches_scale"] < 1:
+            raise AssertionError(f"phase 14 never launched {name}")
+    out["launches"] = paths
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  scale: 1M-route {one_m['sustained_ligands_per_s']:.1f} ligands/s sustained at "
+        f"{one_m['n']}, SMILES route {real['sustained_ligands_per_s']:.1f}; cache build "
+        f"{train['cache_build']['sharded_pockets_per_hour']:.0f} pockets/h; launches {paths}; "
+        f"phase 14 {out['phase_s']:.1f} s")
+    check.raise_misses()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2606,6 +2722,9 @@ def main() -> int:
               flush=True)
         log("[13] the battery (C1-C7), verify_checkpoint and the examples")
         print(json.dumps({"battery": phase_battery(dev, kernels, smi)}), flush=True)
+        log("[14] the scale demos: a 16,384-ligand store and 4,096 SMILES screened with a kill "
+            "and a resume, the DP trainer resumed, a 32-pocket cache build")
+        print(json.dumps({"scale": phase_scale(dev, kernels, smi)}), flush=True)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

@@ -16,9 +16,11 @@ scores do not depend on the process that computes them.
 __version__ = "0.1.0"
 
 from .device import set_up_cpu_vector_math
+from .ops.launch_log import install_from_env
 from .pharmacophore.model import PharmacophoreModel
 
 set_up_cpu_vector_math()  # before any module of the port computes
+install_from_env()  # launch counts at exit, where PMNET_TORCH_LAUNCH_LOG asks
 
 _LAZY = {
     "PharmacoNet": ("pharmaconet_tpu_torch.module", "PharmacoNet"),

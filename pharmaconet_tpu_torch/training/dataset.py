@@ -99,6 +99,13 @@ class PocketLigandDataset:
     def __len__(self) -> int:
         return len(self.code_list)
 
+    def skip(self, index: int) -> None:
+        """The host draws item `index` makes, without the item: with centre
+        noise, `PharmacoNet.parse` draws three numbers of numpy's global
+        generator."""
+        if self.center_noise > 0:
+            np.random.rand(3)
+
     def __getitem__(self, index: int) -> PocketItem:
         code = self.code_list[index]
         t0 = time.perf_counter()

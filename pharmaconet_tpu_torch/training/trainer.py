@@ -9,7 +9,8 @@ Upstream developer/src/trainer.py:25-209, as
     (and wandb, when the caller has started a run)
   * the frozen trunk runs per item; a worker thread prepares the next
     batch (parse, K6, trunk, featurization) while the step runs
-  * full-state resume (params, optimizer state, iteration, epoch)
+  * full-state resume (params, optimizer state, iteration, epoch, and the
+    data order: the batches and noise draws the run would have taken)
 
 Host randomness is the JAX trainer's: `random.seed(0); random.shuffle`
 splits the codes, `random.shuffle` orders each epoch and the parse draws
@@ -66,10 +67,17 @@ class _Prefetcher:
         # stream, so a new stream each epoch would allocate afresh
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
-    def epoch(self):
+    def epoch(self, skip: int = 0):
+        """One epoch's batches, in `random.shuffle` order; the first `skip`
+        batches are passed over, their items' draws made all the same
+        (`PocketLigandDataset.skip`), as a resumed run needs."""
         order = list(range(len(self.dataset)))
         random.shuffle(order)
         starts = list(range(0, len(order) - self.batch_size + 1, self.batch_size))
+        for start in starts[:skip]:
+            for i in order[start:start + self.batch_size]:
+                self.dataset.skip(i)
+        starts = starts[skip:]
         q: queue.Queue = queue.Queue(maxsize=2)
         stop = threading.Event()
         stream = self.stream
@@ -140,6 +148,7 @@ class Trainer:
             logger.addHandler(h)
         logger.setLevel(logging.INFO)
         self._saving: threading.Thread | None = None
+        self._restored_data: dict | None = None
 
         if pmnet is None:
             from ..api import get_pmnet_dev
@@ -239,12 +248,20 @@ class Trainer:
     # ------------------------------------------------------------------
     def fit(self, resume_from: str | Path | None = None):
         """Train to `max_iterations`. A resumed run starts at the iteration
-        after the saved one (the JAX trainer repeats the saved one)."""
+        after the saved one (the JAX trainer repeats the saved one) and, from
+        a checkpoint this trainer wrote, takes the batches and centre-noise
+        draws the uninterrupted run would have taken: the checkpoint holds
+        the host generators' states at the start of its epoch and the
+        batches done in it (the JAX trainer starts a new shuffle)."""
         cfg = self.config.train
-        it, epoch = 1, 0
+        it, epoch, skip = 1, 0, 0
         if resume_from is not None:
             it, epoch = self.restore_state(resume_from)
             it += 1
+            if self._restored_data is not None:
+                random.setstate(self._restored_data["random"])
+                np.random.set_state(self._restored_data["np_random"])
+                skip = self._restored_data["batches_done"]
             logger.info(f"resumed from {resume_from} at iteration {it}")
         best_loss = float("inf")
         prefetcher = _Prefetcher(self.train_dataset, cfg.batch_size, self.pmnet.device)
@@ -252,12 +269,15 @@ class Trainer:
         # at float32 for the whole run
         with precision_scope("float32", self.device):
             while it <= cfg.max_iterations:
-                for items in prefetcher.epoch():
+                data = {"random": random.getstate(), "np_random": np.random.get_state(),
+                        "batches_done": skip}
+                for items in prefetcher.epoch(skip):
                     if it > cfg.max_iterations:
                         break
                     tick = time.time()
                     step = self.dp_step if self.mesh is not None else self._train_step
                     info = {"loss": float(step(items)), "time": time.time() - tick}
+                    data["batches_done"] += 1
                     if it % cfg.print_every == 0:
                         logger.info(f"epoch {epoch} iteration {it} train : "
                                     + " ".join(f"{k}:{v:.2f}" for k, v in info.items()))
@@ -266,7 +286,8 @@ class Trainer:
                     if it % cfg.save_every == 0:
                         self.save_checkpoint(f"epoch-{epoch}-it-{it}.npz")
                         self.save_state("resume.ckpt", it, epoch,
-                                        backend=getattr(cfg, "checkpoint_backend", "pickle"))
+                                        backend=getattr(cfg, "checkpoint_backend", "pickle"),
+                                        data=data)
                     if it % cfg.val_every == 0:
                         val_info = self.evaluate()
                         self.log(val_info, it, epoch, "valid")
@@ -276,6 +297,7 @@ class Trainer:
                             self.save_checkpoint("best.npz")
                             best_loss = val_info["loss"]
                     it += 1
+                skip = 0
                 epoch += 1
         self.save_checkpoint("last.npz")
         self.wait_for_checkpoints()
@@ -309,12 +331,15 @@ class Trainer:
     # Full-state checkpoints (params + optimizer + progress). Upstream saves
     # weights only and cannot resume (developer/src/trainer.py:177-182).
     # ------------------------------------------------------------------
-    def save_state(self, filename: str, it: int, epoch: int, backend: str = "pickle") -> None:
+    def save_state(self, filename: str, it: int, epoch: int, backend: str = "pickle",
+                   data: dict | None = None) -> None:
         """backend='pickle' writes atomically (tmp + os.replace: a crash
         mid-save leaves the previous checkpoint whole). backend='orbax', as
         a JAX config may name it, writes the same file off the train loop:
         the state is copied to the host now, and a thread writes it
-        (`wait_for_checkpoints` joins it). The port has no orbax."""
+        (`wait_for_checkpoints` joins it). The port has no orbax. data:
+        the data order `fit` resumes ({"random", "np_random": the host
+        generators' states at the start of the epoch, "batches_done"})."""
         if backend not in ("pickle", "orbax"):
             raise ValueError(f"unknown checkpoint backend {backend!r}")
 
@@ -328,6 +353,8 @@ class Trainer:
             "iteration": it,
             "epoch": epoch,
         }
+        if data is not None:
+            state["data"] = dict(data)
         path = self.save_dir / filename
         self.wait_for_checkpoints()
         if backend == "pickle":
@@ -344,9 +371,11 @@ class Trainer:
 
     def restore_state(self, path) -> tuple[int, int]:
         """Load a full-state checkpoint of either backend; returns
-        (iteration, epoch) as saved."""
+        (iteration, epoch) as saved. Its data order, where it holds one,
+        waits in `_restored_data` for `fit`."""
         with open(path, "rb") as f:
             state = pickle.load(f)
+        self._restored_data = state.get("data")
 
         def device(arrays: dict) -> dict:
             return {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}

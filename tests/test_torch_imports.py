@@ -104,6 +104,10 @@ def test_every_module_imports_without_jax_and_builds_nothing():
         "utils.crosscheck", "utils.download_weight", "cli.verify_checkpoint", "probes.chip_ci")}
     assert battery <= names, battery - names
     assert "pharmaconet_tpu_torch.probes.probe_reproducible" in names
+    scale_demos = {f"pharmaconet_tpu_torch.{m}" for m in (
+        "ops.launch_log", "probes.scale", "probes.demo_1m_screen", "probes.demo_real_screen",
+        "probes.demo_train_scale")}
+    assert scale_demos <= names, scale_demos - names
 
 
 def test_cuda_without_card_raises():
