@@ -172,6 +172,21 @@ Phases, in order; any failure exits non-zero:
                uninterrupted ones, every spot check, the resumed parameters
                within STEP_PARAM_TOL and the sharded caches equal to the
                serial ones; K2 and K6 add `launches_scale`
+ 15. probes  — the stored-route and decoder probes, each `python -m
+               pharmaconet_tpu_torch.probes.<probe>` as a subprocess on the
+               card, its report printed on a line of its own:
+               probe_leaf_phases (K2 and the leaf chain in phases on the
+               headline store's first batch; D against the --library_tiles
+               CSV), probe_shape_sweep (4-40 clusters x 4/8 conformers at
+               256 ligands, each against the reference engine),
+               probe_sparse_wire (1,024 fragment SMILES baked on both leaf
+               wires, the CSVs equal, 16 spot checks) and
+               probe_sparse_split on its stores (the copy against the
+               chain), probe_gather_variants (every window bit-equal),
+               probe_scan_share (K3 at depth 0 against its plain version),
+               probe_seg_bf16 (phase 7's pocket and checkpoint in three
+               precisions) and probe_conv_ladder (B = 4); every gate is the
+               probe's; K2, K3 and K6 add `launches_probes15`
 Then prints the {"kernels": [...]} line, the nvidia-smi name/power line, and
 last {"ok": true, "device": {...}}. A kernel's `ms` is one call between two
 CUDA events (host work included), `stream_ms` its time per call back to
@@ -190,6 +205,9 @@ and `launches_proxy_paths` (per path), `launches_train` and
 verify_checkpoint and each example). K2 and K6 add `launches_scale` and
 `launches_scale_paths` (phase 14's, per demo: each demo's processes that
 exit normally log their counts, ops/launch_log.py; a killed one logs none).
+K2, K3 and K6 add `launches_probes15` and `launches_probes15_paths` (phase
+15's, per probe: every launch of the probe's process, timing and gates
+included).
 """
 
 from __future__ import annotations
@@ -902,46 +920,15 @@ def modeling_stages(net, pdb: Path, center) -> dict[str, float]:
 
 
 def decoder_precisions(net, data) -> dict:
-    """The mask decoder on the pocket's kept hotspots, chunk by chunk, in
-    float32 (what the default 'tensorfloat32' runs) and as one TF32 pass
-    (precision_scope): each mode's thresholded-voxel flips, largest map
-    difference against float32 and that difference over float32's largest
-    value, and its ms per chunk (host clock to a synchronize, median over
-    chunks of the median of 3)."""
-    from pharmaconet_tpu_torch.module import precision_scope
+    """The mask decoder on the pocket's kept hotspots in float32 (what the
+    default 'tensorfloat32' runs) and as one TF32 pass (`precision_scope`):
+    per mode the thresholded-voxel flips, the largest map difference
+    against float32 and its share of float32's largest value, and ms per
+    chunk back to back (`probe_seg_bf16.decoder_modes`, one call a round)."""
+    from pharmaconet_tpu_torch.probes.probe_seg_bf16 import decoder_modes
 
-    dev = net.device
-    scopes = {"float32": lambda: precision_scope("float32", dev),
-              "tf32_one_pass": lambda: precision_scope("tensorfloat32", dev)}
-    out = net.run_trunk(data)
-    keep = np.nonzero(out["keep"].cpu().numpy())[0]
-    tokens = torch.from_numpy(data.tokens).to(dev)
-    chunk = net.segmentation_chunk
-    res = {m: dict(flips=0, max_diff=0.0, ms=[]) for m in scopes}
-    largest = 0.0
-    for start in range(0, len(keep), chunk):
-        part = keep[start : start + chunk]
-        idx = np.zeros(chunk, dtype=np.int64)
-        idx[: len(part)] = part
-        valid = np.arange(chunk) < len(part)
-        sel = torch.from_numpy(idx).to(dev)
-        hot, feats = tokens[sel], out["token_features"][sel]
-        density = {}
-        for mode, scope in scopes.items():
-            def decode(scope=scope):
-                with torch.no_grad(), scope():
-                    return net.model.forward_segmentation(out["pyramid"], hot, feats).float()
-            logits, ms = host_s(decode)
-            res[mode]["ms"].append(ms * 1e3)
-            density[mode] = net.postprocess(out, hot, logits, valid)[0]
-        largest = max(largest, float(density["float32"].abs().max()))
-        for mode in scopes:
-            res[mode]["flips"] += int(((density[mode] > 0) != (density["float32"] > 0)).sum())
-            res[mode]["max_diff"] = max(res[mode]["max_diff"], float(
-                (density[mode] - density["float32"]).abs().max()))
-    return {m: dict(flips=r["flips"], max_diff=r["max_diff"],
-                    max_rel=r["max_diff"] / max(largest, 1e-9),
-                    ms_per_chunk=statistics.median(r["ms"])) for m, r in res.items()}
+    return decoder_modes(net, data, {"float32": "float32", "tf32_one_pass": "tensorfloat32"},
+                         reps=1)["modes"]
 
 
 def phase_modeling(dev, kernels: dict, card: str) -> None:
@@ -2599,19 +2586,19 @@ SCALE_DEMOS = {
 }
 
 
-def run_scale_demo(name: str, dev) -> dict:
-    """One scale demo on the card in a subprocess; returns its report (its
-    last line), raising when it exited non-zero or its report is not ok."""
+def run_reporting(name: str, argv: list[str], timeout: float = 900) -> dict:
+    """`python -m pharmaconet_tpu_torch.probes.<name> *argv` on the card in
+    a subprocess (a scale demo or a probe over probes/scale.py); returns its
+    report (its last line), raising when it exited non-zero or its report
+    is not ok."""
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", f"pharmaconet_tpu_torch.probes.{name}", *SCALE_DEMOS[name],
-         "--device", str(dev), "--work_dir", str(WORK / name)],
-        cwd=REPO, capture_output=True, text=True, timeout=900)
+    proc = subprocess.run([sys.executable, "-m", f"pharmaconet_tpu_torch.probes.{name}", *argv],
+                          cwd=REPO, capture_output=True, text=True, timeout=timeout)
     lines = proc.stdout.strip().splitlines()
-    log(f"  python -m pharmaconet_tpu_torch.probes.{name} {' '.join(SCALE_DEMOS[name])} "
+    log(f"  python -m pharmaconet_tpu_torch.probes.{name} {' '.join(argv)} "
         f"({time.perf_counter() - t0:.1f} s, rc {proc.returncode}):")
     for line in lines[:-1]:
-        if line.startswith("[demo]"):
+        if line.startswith(("[demo]", "[probe]")):
             log(f"    {line}")
     try:
         report = json.loads(lines[-1])
@@ -2622,6 +2609,12 @@ def run_scale_demo(name: str, dev) -> dict:
                              f"{report.get('error')}:\n{proc.stdout[-3000:]}\n"
                              f"{proc.stderr[-3000:]}")
     return report
+
+
+def run_scale_demo(name: str, dev) -> dict:
+    """One scale demo on the card in a subprocess; returns its report."""
+    return run_reporting(name, [*SCALE_DEMOS[name], "--device", str(dev),
+                                "--work_dir", str(WORK / name)])
 
 
 def check_screen_demo(check: Checks, name: str, report: dict, rows: int) -> None:
@@ -2678,6 +2671,96 @@ def phase_scale(dev, kernels: dict, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 15: the stored-route and decoder probes
+# --------------------------------------------------------------------------
+# cut to keep the phase within 150 s (PERF.md §4): each subprocess costs
+# ~10 s before its first line (interpreter, imports, the card's context), so
+# the probes' own work gets ~60 s: timing rounds of 3 calls (1 for the
+# decoder, 2 for the conv ladder; 30 by hand), probe_shape_sweep at 256
+# ligands per configuration (2048 by hand), probe_sparse_wire at 1,024
+# SMILES in batches of 512 with 16 spot checks (32,768 and 64 by hand) and
+# probe_sparse_split on its stores, probe_gather_variants at 1,024 ligands,
+# probe_conv_ladder at B = 4 (16 by hand)
+PROBES15 = {
+    "probe_leaf_phases": ["--reps", "3"],
+    "probe_shape_sweep": ["--n", "256", "--reps", "3"],
+    "probe_sparse_wire": ["--n", "1024", "--batch_size", "512", "--spot_checks", "16",
+                          "--reps", "3", "--keep"],
+    "probe_sparse_split": ["--stores", str(WORK / "probe_sparse_wire"), "--reps", "3",
+                           "--copies", "3"],
+    "probe_gather_variants": ["--n", "1024", "--reps", "3"],
+    "probe_scan_share": ["--reps", "3"],
+    "probe_seg_bf16": ["--reps", "1"],
+    "probe_conv_ladder": ["--n", "4", "--reps", "2"],
+}
+PROBE15_KERNELS = {  # kernel -> the probes whose launches its entry adds
+    "score_tiles_v3": ("probe_leaf_phases", "probe_shape_sweep", "probe_sparse_wire",
+                       "probe_sparse_split"),
+    "score_tiles_fused_dt": ("probe_scan_share",),
+    "voxelize_pallas": ("probe_seg_bf16",),
+}
+
+
+def run_probe15(name: str, dev) -> dict:
+    """One stored-route or decoder probe on the card in a subprocess;
+    returns its report, raising on a missed gate (the probe exits 1)."""
+    return run_reporting(name, [*PROBES15[name], "--device", str(dev), "--work_dir",
+                                str(WORK / name), "--report", str(WORK / f"{name}.json")],
+                         timeout=600)
+
+
+def phase_stored_probes(dev, kernels: dict, card: str) -> dict:
+    """Probes 1-8 of ROADMAP item 19 on the card, each report printed on a
+    line of its own; every gate is the probe's own (it exits 1 on a miss),
+    and the reports are read back here for what each must show. K2, K3 and
+    K6 add `launches_probes15` (all launches of the probes' processes,
+    timing and gates included) and `launches_probes15_paths`."""
+    out: dict = {"card": card}
+    check = Checks("phase 15")
+    t0 = time.perf_counter()
+    reports = {}
+    for name in PROBES15:
+        reports[name] = run_probe15(name, dev)
+        print(json.dumps({name: reports[name]}), flush=True)
+        out[f"{name}_s"] = reports[name]["wall_s"]
+    leaf, sweep, wire, split, gather, scan, seg, conv = (reports[k] for k in PROBES15)
+    check.true("leaf phases: D against --library_tiles", "gate" in leaf, str(leaf.get("gate")))
+    configs = {(r["clusters"], r["conformers"]) for r in sweep["rows"]}
+    check.true("shape sweep: 4-40 clusters x 4/8 conformers, each gated",
+               configs == {(c, k) for c in (4, 10, 20, 40) for k in (4, 8)}
+               and all("gate" in r and "k2_gate" in r for r in sweep["rows"]), str(configs))
+    check.true("sparse wire: CSVs and spot checks", "csv_gate" in wire
+               and wire["spot_check"]["failed"] == 0 and wire["spot_check"]["checked"] > 0,
+               str(wire.get("spot_check")))
+    check.true("sparse split: the wires agree", "gate" in split, str(split.get("gate")))
+    check.true("gather variants: g0-g5 and the chain's window, bit-equal",
+               set(gather["variants"]) == {"g0", "g1", "g2", "g3", "g4", "g5", "window"},
+               str(list(gather["variants"])))
+    check.true("scan share: K3 at every depth setting against its plain version",
+               set(scan["gates"]) == {"full", "depth2_0", "depth1_0", "both_0"},
+               str(scan["gates"]))
+    check.true("seg bf16: three precisions", set(seg["modes"]) ==
+               {"float32", "tf32_one_pass", "bfloat16"}, str(list(seg["modes"])))
+    check.true("conv ladder: shift27 against conv96", "gate" in conv, str(conv.get("gate")))
+    check.raise_misses()
+    paths = {kernel: {p: reports[p]["launches"].get(kernel, 0) for p in probes}
+             for kernel, probes in PROBE15_KERNELS.items()}
+    for kernel, per_probe in paths.items():
+        kernels[kernel]["launches_probes15"] = sum(per_probe.values())
+        kernels[kernel]["launches_probes15_paths"] = per_probe
+        if kernels[kernel]["launches_probes15"] < 1:
+            raise AssertionError(f"phase 15 never launched {kernel}")
+    out["launches"] = paths
+    out["phase_s"] = time.perf_counter() - t0
+    d = leaf["deltas"]
+    log(f"  stored route (headline batch): K2 {d['k2_ms']:.4f} ms, gather "
+        f"{d['gather_ms']:.4f}, products {d['products_ms']:.4f}, epilogue "
+        f"{d['epilogue_ms']:.4f}; copy dense {split['dense']['copy_ms']:.3f} ms, sparse "
+        f"{split['sparse']['copy_ms']:.3f}; launches {paths}; phase 15 {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2725,6 +2808,10 @@ def main() -> int:
         log("[14] the scale demos: a 16,384-ligand store and 4,096 SMILES screened with a kill "
             "and a resume, the DP trainer resumed, a 32-pocket cache build")
         print(json.dumps({"scale": phase_scale(dev, kernels, smi)}), flush=True)
+        log("[15] the stored-route and decoder probes: leaf phases, the shape sweep, the "
+            "sparse wire and its split, gather variants, K3's scan share, the decoder's "
+            "precisions and the conv ladder")
+        print(json.dumps({"probes15": phase_stored_probes(dev, kernels, smi)}), flush=True)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

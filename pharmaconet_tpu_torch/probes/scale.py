@@ -44,9 +44,10 @@ def log(msg: str) -> None:
     print(f"[demo] {msg}", flush=True)
 
 
-def common_parser(description: str, n: int) -> argparse.ArgumentParser:
+def common_parser(description: str, n: int, n_help: str = "library size"
+                  ) -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=description)
-    parser.add_argument("--n", type=int, default=n, help="library size")
+    parser.add_argument("--n", type=int, default=n, help=n_help)
     parser.add_argument("--work_dir", type=str, default=None,
                         help="where the demo writes (default: a fresh temporary directory)")
     parser.add_argument("--report", type=str, default=None,
@@ -61,11 +62,12 @@ def close(got: float, want: float) -> bool:
     return abs(got - want) <= ATOL + RTOL * abs(want)
 
 
-def run_demo(name: str, args, body) -> int:
+def run_demo(name: str, args, body, kind: str = "demo") -> int:
     """Run `body(args, work, report)` in an empty work directory; write and
-    print the report; return 0, or 1 (the traceback on stderr, `ok` false
-    and `error` set in the report) when body raised. The work directory's
-    files go unless --keep, or unless it was given and the demo failed."""
+    print the report (`{kind: name, ...}`); return 0, or 1 (the traceback on
+    stderr, `ok` false and `error` set in the report) when body raised. The
+    work directory's files go unless --keep, or unless it was given and the
+    demo failed."""
     from ..device import resolve_device
 
     resolve_device(args.device)  # cuda without a card raises before any work
@@ -75,7 +77,7 @@ def run_demo(name: str, args, body) -> int:
         raise DemoError(f"--work_dir {work} is not empty")
     work.mkdir(parents=True, exist_ok=True)
     report_path = Path(args.report) if args.report else work / "report.json"
-    report: dict = {"demo": name, "ok": False, "n": args.n, "device": str(args.device)}
+    report: dict = {kind: name, "ok": False, "n": args.n, "device": str(args.device)}
     t0 = time.perf_counter()
     try:
         if str(args.device).startswith("cuda"):

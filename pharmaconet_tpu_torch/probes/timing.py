@@ -125,18 +125,18 @@ class Times:
                     gapless=self.gapless)
 
 
-def time_rounds(device: torch.device, fns: dict) -> dict[str, Times]:
+def time_rounds(device: torch.device, fns: dict, reps: int = REPS) -> dict[str, Times]:
     """{name: Times}: every function timed once per round in turn over
-    ROUNDS rounds (REPS calls each), so a drift of the card's clocks
+    ROUNDS rounds (`reps` calls each), so a drift of the card's clocks
     spreads over all of them instead of favouring the first; each number
     is the median over the rounds."""
     runs = {name: [] for name in fns}
     for _ in range(ROUNDS):
         for name, fn in fns.items():
             if device.type == "cuda":
-                runs[name].append((time_ms(fn, REPS), *stream_ms(fn, REPS)))
+                runs[name].append((time_ms(fn, reps), *stream_ms(fn, reps)))
             else:
-                runs[name].append((host_ms(fn, REPS), None, None, None))
+                runs[name].append((host_ms(fn, reps), None, None, None))
     out = {}
     for name, r in runs.items():
         ms, stream, enqueue, gapless = zip(*r)

@@ -108,6 +108,11 @@ def test_every_module_imports_without_jax_and_builds_nothing():
         "ops.launch_log", "probes.scale", "probes.demo_1m_screen", "probes.demo_real_screen",
         "probes.demo_train_scale")}
     assert scale_demos <= names, scale_demos - names
+    stored_probes = {f"pharmaconet_tpu_torch.probes.{m}" for m in (
+        "stored_route", "probe_leaf_phases", "probe_shape_sweep", "probe_sparse_wire",
+        "probe_sparse_split", "probe_gather_variants", "probe_scan_share", "probe_seg_bf16",
+        "probe_conv_ladder", "probe_dfs_stats", "probe_layout_stats")}
+    assert stored_probes <= names, stored_probes - names
 
 
 def test_cuda_without_card_raises():
