@@ -187,6 +187,18 @@ Phases, in order; any failure exits non-zero:
                probe_seg_bf16 (phase 7's pocket and checkpoint in three
                precisions) and probe_conv_ladder (B = 4); every gate is the
                probe's; K2, K3 and K6 add `launches_probes15`
+ 16. bench   — bench_torch.py (bench.py's counterpart) in process through
+               `bench_torch.run` at the headline batch, 3 iterations:
+               kernel mode with every engine (pallas-dt K3, v3 K2, v3-leaf
+               K2 + the leaf chain on the default sparse-wire store,
+               pallas K4, pallas-split K5 + the plain scans, xla), then
+               e2e (K1), stored on a v2 and a v3 store, and proxy; every
+               run behind its own gate, each with the launch counts reset
+               just before and read just after (K1-K5 add
+               `launches_bench` and `launches_bench_paths`); then
+               `python3 bench_torch.py 2048 3` as a subprocess, its last
+               line naming the card with `correct: true`; one
+               {"bench": ...} line
 Then prints the {"kernels": [...]} line, the nvidia-smi name/power line, and
 last {"ok": true, "device": {...}}. A kernel's `ms` is one call between two
 CUDA events (host work included), `stream_ms` its time per call back to
@@ -207,7 +219,8 @@ verify_checkpoint and each example). K2 and K6 add `launches_scale` and
 exit normally log their counts, ops/launch_log.py; a killed one logs none).
 K2, K3 and K6 add `launches_probes15` and `launches_probes15_paths` (phase
 15's, per probe: every launch of the probe's process, timing and gates
-included).
+included). K1-K5 add `launches_bench` and `launches_bench_paths` (phase
+16's, per bench run).
 """
 
 from __future__ import annotations
@@ -2761,6 +2774,73 @@ def phase_stored_probes(dev, kernels: dict, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 16: bench_torch.py, the screening benchmark
+# --------------------------------------------------------------------------
+BENCH_ITERS = 3
+# (label, mode, engine, run keywords, the kernel the run must launch; the
+# stored runs launch theirs in the gate, screening the batch on the card)
+BENCH_RUNS = (
+    ("pallas-dt", "kernel", "pallas-dt", {}, "score_tiles_fused_dt"),
+    ("v3", "kernel", "v3", {}, "score_tiles_v3"),
+    ("v3-leaf", "kernel", "v3-leaf", {}, "score_tiles_v3"),
+    ("pallas", "kernel", "pallas", {}, "score_blocks_fused"),
+    ("pallas-split", "kernel", "pallas-split", {}, "gaussian_phase"),
+    ("xla", "kernel", "xla", {}, None),
+    ("e2e", "e2e", "pallas-dt", {}, "score_tiles_fused_rows"),
+    ("stored-v2", "stored", "pallas-dt", dict(store="v2"), "score_tiles_fused_dt"),
+    ("stored-v3", "stored", "pallas-dt", dict(store="v3"), "score_tiles_v3"),
+    ("proxy", "proxy", "pallas-dt", {}, None),
+)
+
+
+def phase_bench(dev, kernels: dict, card: str) -> dict:
+    """bench_torch.run in process for every engine and mode at the
+    headline batch (each run's gate raises on a miss), then the script as
+    a subprocess; K1-K5 add `launches_bench` and `launches_bench_paths`."""
+    import bench_torch
+    from pharmaconet_tpu_torch.ops import screen_cuda
+
+    out: dict = {"card": card, "runs": {}}
+    t0 = time.perf_counter()
+    paths: dict = {}
+    for label, mode, engine, kw, kernel in BENCH_RUNS:
+        screen_cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        r = bench_torch.run(mode, engine, batch_size=N_BATCH, iters=BENCH_ITERS, device=dev,
+                            **kw)
+        torch.cuda.synchronize()
+        counts = dict(screen_cuda.LAUNCHES)
+        if not r["correct"]:
+            raise AssertionError(f"phase 16: {label} not correct")
+        if kernel is not None:
+            paths.setdefault(kernel, {})[label] = counts[kernel]
+        out["runs"][label] = r
+        log(f"  {label}: {r['metric']} {r['value']:.1f} {r['unit']}, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+    for kernel, per_run in paths.items():
+        kernels[kernel]["launches_bench"] = sum(per_run.values())
+        kernels[kernel]["launches_bench_paths"] = per_run
+        if kernels[kernel]["launches_bench"] < 1:
+            raise AssertionError(f"phase 16 never launched {kernel}")
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "bench_torch.py", str(N_BATCH), str(BENCH_ITERS)],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_torch.py exited {proc.returncode}: {proc.stderr[-2000:]}")
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not (cli.get("correct") is True and cli["device"]["name"] == card.split(",")[0].strip()
+            and cli["engine"] == "pallas-dt" and cli["launches"].get("score_tiles_fused_dt")):
+        raise AssertionError(f"bench_torch.py's last line: {cli}")
+    out["cli"] = cli
+    out["cli_s"] = time.perf_counter() - t1
+    out["launches"] = paths
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  bench_torch.py {N_BATCH} {BENCH_ITERS}: {cli['value']:.1f} {cli['unit']} "
+        f"({out['cli_s']:.1f} s); launches {paths}; phase 16 {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2812,6 +2892,8 @@ def main() -> int:
             "sparse wire and its split, gather variants, K3's scan share, the decoder's "
             "precisions and the conv ladder")
         print(json.dumps({"probes15": phase_stored_probes(dev, kernels, smi)}), flush=True)
+        log("[16] bench_torch.py: every engine and mode at the headline batch behind its gate")
+        print(json.dumps({"bench": phase_bench(dev, kernels, smi)}), flush=True)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

@@ -3,7 +3,8 @@
 `make_synthetic_model` and `make_synthetic_ligands` build the headline
 screening workload of the repo's benchmark (bench.py): a 20-cluster pocket
 model (~40 nodes, realistic radii) and drug-like packed ligands (5-10
-clusters of 1-2 nodes, 4 conformers). `write_random_library` writes
+clusters of 1-2 nodes, 4 conformers); `SMILES_POOL` is the SMILES list
+its proxy mode scores. `write_random_library` writes
 random small molecules as .sdf/.mol2 files for the `-d` route. The same
 seeds give the same inputs as the JAX package's generators.
 `write_synthetic_pocket` writes a protein PDB around an empty cavity for
@@ -152,6 +153,17 @@ def make_synthetic_ligands(n: int, num_conformers: int = 4, seed: int = 1):
             )
         )
     return out
+
+
+# the drug-like SMILES that the proxy benchmark cycles through (bench.py's pool)
+SMILES_POOL = [
+    "c1ccccc1", "c1ccncc1", "c1ccc2ccccc2c1", "CC(=O)Nc1ccc(O)cc1",
+    "CC(C)Cc1ccc(cc1)C(C)C(=O)O", "CCO", "CC(=O)OC", "CCN(CC)CC",
+    "c1ccc(cc1)C(=O)O", "CC(C)(C)c1ccccc1O", "COc1ccc(cc1)CCN",
+    "Clc1ccc(cc1)C(=O)N", "Fc1ccc(cc1)S(=O)(=O)N", "CC1CCCCC1",
+    "O=C1CCCCC1", "c1ccc(cc1)Cc1ccccc1", "CC(N)C(=O)O",
+    "c1ccc(cc1)NC(=O)C", "CCOC(=O)c1ccccc1", "Cc1cccc(C)c1NC(=O)C",
+]
 
 
 _ELEMENTS = ["C", "C", "C", "N", "O", "S", "F", "Cl"]

@@ -18,9 +18,12 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "pharmaconet_tpu_torch"
+ROOT_ENTRY_POINTS = ["bench_torch.py", "feature_extraction_torch.py", "modeling_torch.py",
+                     "prepack_torch.py", "screening_torch.py"]
 PORT_FILES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")) + [
-    "chip_smoke.py", *sorted(p.relative_to(REPO).as_posix()
-                             for p in (REPO / "examples").glob("*_torch.py"))]
+    "chip_smoke.py", *ROOT_ENTRY_POINTS, *sorted(p.relative_to(REPO).as_posix()
+                                                 for p in (REPO / "examples").glob("*_torch.py"))]
+BLOCK_JAX = 'import sys; sys.modules["jax"] = None; sys.modules["pharmaconet_tpu"] = None; '
 
 
 def _imported_modules(path: Path) -> set[str]:
@@ -139,6 +142,58 @@ def test_wrappers_refuse_other_devices():
     mixed = [torch.empty(1, 12, 64), torch.empty(1, 1024, device="meta")]
     with pytest.raises(ValueError, match="several devices"):
         screen_cuda.score_tiles_fused_rows(*mixed, torch.empty(1), torch.empty(1), 1, 2)
+
+
+@pytest.mark.parametrize("rel", ROOT_ENTRY_POINTS)
+def test_root_entry_point_help_without_jax(rel):
+    """bench_torch.py and the *_torch.py shims answer --help with JAX
+    absent."""
+    code = BLOCK_JAX + (f"import runpy; sys.argv = [{rel!r}, '--help']; "
+                        f"runpy.run_path({rel!r}, run_name='__main__')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("usage:"), out.stdout
+
+
+def test_console_scripts_resolve_without_jax():
+    """Each pmnet-torch-* script of pyproject.toml names an existing
+    `entrypoint` of the port's CLI that imports with JAX absent, one for
+    each pmnet-tpu-* script."""
+    import tomllib
+
+    scripts = tomllib.loads((REPO / "pyproject.toml").read_text())["project"]["scripts"]
+    torch_scripts = {k: v for k, v in scripts.items() if k.startswith("pmnet-torch-")}
+    assert sorted(k.replace("-tpu-", "-torch-") for k in scripts if k.startswith("pmnet-tpu-")) \
+        == sorted(torch_scripts)
+    code = BLOCK_JAX + textwrap.dedent(f"""
+        import importlib
+        for target in {sorted(torch_scripts.values())!r}:
+            module, attr = target.split(":")
+            assert module.startswith("pharmaconet_tpu_torch.cli."), target
+            assert attr == "entrypoint" and callable(getattr(importlib.import_module(module), attr))
+        assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+                       if sys.modules[m] is not None)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_bench_torch_runs_without_jax():
+    """bench_torch.py imports and runs a kernel-mode engine (on the CPU)
+    with JAX and the JAX package absent."""
+    code = BLOCK_JAX + textwrap.dedent("""
+        import bench_torch
+        r = bench_torch.run("kernel", "v3-leaf", batch_size=16, iters=1, device="cpu",
+                            clusters=4)
+        assert r["correct"] is True, r
+        assert not any(m == "jax" or m.startswith(("jax.", "pharmaconet_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.mark.parametrize("isolated", [False, True], ids=["repo", "alone"])
