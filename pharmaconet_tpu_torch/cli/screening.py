@@ -12,7 +12,13 @@ cuda; asking for cuda without a visible card is an error, never a quiet
 move to the CPU). With --device cuda and more than one visible card, the
 screen shards over all of them (`parallel.screening.ShardedScreener`):
 each --library/--smiles batch splits into one share per card, and
---library_tiles scores one stored batch per card at a time.
+--library_tiles scores one stored batch per card at a time. --profile DIR
+writes a torch.profiler trace of the screen to DIR (`utils.profiling.trace`):
+the Chrome trace, with the program's `pmnet.*` spans of the stored route
+(store load, page-in and wait; dispatch with its copy-out and pageable
+copy; tail with its wait for the card and host DFS; the partial CSV)
+beside the card's kernels and copies, and those spans and counters as
+JSON beside it.
 
   python -m pharmaconet_tpu_torch.cli.screening -p model.pm --library lib.npz \\
       -o out.csv --device cuda
@@ -20,11 +26,14 @@ each --library/--smiles batch splits into one share per card, and
       -o out.csv --device cuda
   python -m pharmaconet_tpu_torch.cli.screening -p model.pm --smiles lib.smi \\
       -o out.csv --device cuda
+  python -m pharmaconet_tpu_torch.cli.screening -p model.pm --library_tiles tiles/ \\
+      -o out.csv --device cuda --profile trace/
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 from pathlib import Path
@@ -60,6 +69,10 @@ def build_parser() -> argparse.ArgumentParser:
                           "(0 = one per CPU)")
     cfg.add_argument("--device", type=str, default="cuda",
                      help="torch device that scores (cuda, cuda:N, or cpu)")
+    cfg.add_argument("--profile", type=str, metavar="DIR",
+                     help="write a torch.profiler trace of the screen to DIR, with the "
+                          "program's pmnet.* spans and counters as JSON beside it "
+                          "(view with TensorBoard or Perfetto)")
 
     param = parser.add_argument_group("parameter")
     param.add_argument("--hydrophobic", type=float, default=1.0, help="weight for hydrophobic carbon")
@@ -110,6 +123,7 @@ def screen_tiles(screener, store_path: str, out: str) -> list[tuple[str, float]]
     batches complete; a rerun skips the ligands already there."""
     from pharmaconet_tpu_torch.parallel.screening import ShardedScreener
     from pharmaconet_tpu_torch.scoring.tiled_store import TiledStore
+    from pharmaconet_tpu_torch.utils import profiling
 
     store = TiledStore(store_path, screener.packed_model)
     names = store.names()
@@ -127,11 +141,12 @@ def screen_tiles(screener, store_path: str, out: str) -> list[tuple[str, float]]
     with open(partial_path, "a") as partial:
 
         def emit_scores(scores, base):
-            for j, score in enumerate(scores):
-                if base + j not in done:
-                    partial.write(f"{base + j},{names[base + j]},{score}\n")
-                    results.append((names[base + j], score))
-            partial.flush()
+            with profiling.span("pmnet.csv", batch=base // store.batch_size):
+                for j, score in enumerate(scores):
+                    if base + j not in done:
+                        partial.write(f"{base + j},{names[base + j]},{score}\n")
+                        results.append((names[base + j], score))
+                partial.flush()
 
         def emit(sb, result, base):
             emit_scores(screener.postprocess_stored(sb, result)
@@ -168,7 +183,7 @@ def main(args) -> int:
     from pharmaconet_tpu_torch.parallel.screening import ShardedScreener
     from pharmaconet_tpu_torch.pharmacophore.model import PharmacophoreModel
     from pharmaconet_tpu_torch.scoring.batch_screen import BatchScreener
-    from pharmaconet_tpu_torch.scoring.ligand import Ligand
+    from pharmaconet_tpu_torch.utils import profiling
 
     model = PharmacophoreModel.load(args.pharmacophore_model)
     weights = dict(
@@ -187,6 +202,28 @@ def main(args) -> int:
     else:
         screener = BatchScreener(model, weights, pack_threads=pack_threads,
                                  device=args.device)
+
+    if not (args.library_tiles or args.library or args.smiles or args.library_dir):
+        print("provide -d/--library_dir, --library, --library_tiles or --smiles",
+              file=sys.stderr)
+        return 2
+    with profiling.trace(args.profile) if args.profile else contextlib.nullcontext():
+        results = screen(args, screener, pack_threads)
+    if args.profile:
+        print(f"wrote the profiler trace and the pmnet spans to {args.profile}")
+
+    results.sort(key=lambda x: x[1], reverse=True)
+    with open(args.out, "w") as w:
+        w.write("path,score\n")
+        for filename, score in results:
+            w.write(f"{filename},{score}\n")
+    return 0
+
+
+def screen(args, screener, pack_threads: int) -> list[tuple[str, float]]:
+    """(name, score) of every ligand of the library the flags name."""
+    from pharmaconet_tpu_torch.parallel.screening import ShardedScreener
+    from pharmaconet_tpu_torch.scoring.ligand import Ligand
 
     results: list[tuple[str, float]] = []
     if args.library_tiles:
@@ -246,10 +283,6 @@ def main(args) -> int:
                 executor.score_packed([p for _, p, _ in todo], on_batch=stream)
         partial_path.unlink()  # complete: the sorted CSV is the record
     else:
-        if not args.library_dir:
-            print("provide -d/--library_dir, --library, --library_tiles or --smiles",
-                  file=sys.stderr)
-            return 2
         from pharmaconet_tpu_torch.scoring.parse_pool import iter_parsed
 
         library = Path(args.library_dir)
@@ -273,13 +306,7 @@ def main(args) -> int:
             if len(batch_ligands) >= args.batch_size:
                 flush()
         flush()
-
-    results.sort(key=lambda x: x[1], reverse=True)
-    with open(args.out, "w") as w:
-        w.write("path,score\n")
-        for filename, score in results:
-            w.write(f"{filename},{score}\n")
-    return 0
+    return results
 
 
 def entrypoint() -> int:

@@ -39,6 +39,7 @@ import torch
 from ..constants import DEFAULT_WEIGHTS, MAX_MATCH_DEPTH
 from ..device import resolve_device
 from ..ops import screen_cuda
+from ..utils import profiling
 from .graph_match import priority_fn
 from .ligand import Ligand
 from .tree import ClusterMatchTreeRoot
@@ -831,7 +832,15 @@ def _dfs_scores(
     DFS (native/match_dfs.cpp; _dfs_scores_python is the semantic
     reference). threads > 1 shards the per-ligand searches over a thread
     pool (independent searches, bit-identical scores at any thread count).
+    Span `pmnet.tail.dfs`, counter `pmnet.dfs_ligands` (utils/profiling.py).
     """
+    with profiling.span("pmnet.tail.dfs"):
+        out = _run_dfs(batch, table, threads)
+    profiling.count("pmnet.dfs_ligands", len(out))
+    return [float(v) for v in out]
+
+
+def _run_dfs(batch: ScreenBatch, table: np.ndarray, threads: int) -> np.ndarray:
     from ..native import get_match_dfs, get_match_dfs_mt
 
     cached = getattr(batch, "dfs_arrays", None)
@@ -862,7 +871,7 @@ def _dfs_scores(
         get_match_dfs_mt()(*args, threads)
     else:
         get_match_dfs()(*args)
-    return [float(v) for v in out]
+    return out
 
 
 def _dfs_scores_python(batch: ScreenBatch, table: np.ndarray) -> list[float]:
@@ -978,16 +987,24 @@ class BatchScreener:
     def _to_device(self, a: np.ndarray, dtype: torch.dtype | None = None) -> torch.Tensor:
         """Host array -> tensor on the screener's device. The copy from
         pageable host memory has finished reading `a` when this returns, so
-        a pack buffer may be reused as soon as the launch is queued."""
+        a pack buffer may be reused as soon as the launch is queued. Spans
+        `pmnet.dispatch.copy_out` and `pmnet.dispatch.h2d`, counters
+        `pmnet.copy_out_bytes` and `pmnet.h2d_bytes`."""
         a = np.asarray(a)
         if not a.flags.writeable:  # a read-only store mapping: copy it out
-            a = np.array(a)
+            with profiling.span("pmnet.dispatch.copy_out"):
+                a = np.array(a)
+            profiling.count("pmnet.copy_out_bytes", a.nbytes)
         t = torch.from_numpy(np.ascontiguousarray(a))
-        return t.to(self.device, dtype=dtype)
+        with profiling.span("pmnet.dispatch.h2d"):
+            t = t.to(self.device, dtype=dtype)
+        profiling.count("pmnet.h2d_bytes", a.nbytes)
+        return t
 
     def _to_host(self, t: torch.Tensor) -> np.ndarray:
-        """Device result -> numpy, copied on the stream that produced it."""
-        with self._device_scope():
+        """Device result -> numpy, copied on the stream that produced it
+        (span `pmnet.tail.d2h`: the wait for the card, then the copy)."""
+        with self._device_scope(), profiling.span("pmnet.tail.d2h"):
             return t.cpu().numpy()
 
     def _device_scope(self):
@@ -1149,18 +1166,20 @@ class BatchScreener:
             compaction on the device);
           v3 without them: K2's [T*1024, C] rows;
           v2 (dt.npy): K3's rows; v1 (no dt.npy): K1's rows, over the
-          tiles that hold pair ends."""
-        if getattr(sb, "gid", None) is not None:
+          tiles that hold pair ends.
+        Span `pmnet.dispatch`: its self time is the host's launches."""
+        with profiling.span("pmnet.dispatch", batch=sb.index):
+            if getattr(sb, "gid", None) is not None:
+                with self._device_scope():
+                    return self._dispatch_stored_v3(sb)
+            if sb.dt is None:
+                return self.dispatch_tb(sb)
+            t = _used_tiles(sb)
             with self._device_scope():
-                return self._dispatch_stored_v3(sb)
-        if sb.dt is None:
-            return self.dispatch_tb(sb)
-        t = _used_tiles(sb)
-        with self._device_scope():
-            return screen_cuda.score_tiles_fused_dt_rows(
-                self._to_device(sb.dt[:t]), self._to_device(sb.gtab[:t]),
-                self._to_device(sb.aux[:t]), depth1=sb.depth1, depth2=sb.depth2,
-            )
+                return screen_cuda.score_tiles_fused_dt_rows(
+                    self._to_device(sb.dt[:t]), self._to_device(sb.gtab[:t]),
+                    self._to_device(sb.aux[:t]), depth1=sb.depth1, depth2=sb.depth2,
+                )
 
     def _dispatch_stored_v3(self, sb):
         from .leaf_tree import leaf2_scores_device, leaf2_scores_multi
@@ -1186,7 +1205,11 @@ class BatchScreener:
         ligands score 0). Leaf-baked batches hand the final live scores
         plus the outlier rows, which get a host DFS over their few
         ligands; the others a pair table for the C++ DFS, with the prune
-        mask and DFS arrays precomputed at prepack time."""
+        mask and DFS arrays precomputed at prepack time. Span `pmnet.tail`."""
+        with profiling.span("pmnet.tail", batch=sb.index):
+            return self._stored_scores(sb, result)
+
+    def _stored_scores(self, sb, result) -> list[float]:
         scores = [0.0] * sb.batch_len
         if getattr(sb, "leaf2_ps", None) is not None or getattr(sb, "leaf_buckets", None) is not None:
             dev_scores, out_rows = result

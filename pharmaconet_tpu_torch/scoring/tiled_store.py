@@ -35,6 +35,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils import profiling
 from .batch_screen import PackedLigand, PackedModel
 
 # v2 adds batches/*/dt.npy: prepack-time conformer distances read by K3
@@ -86,6 +87,7 @@ class StoredBatch:
     # v2: prepack-time conformer distances [T, C, tile], read by K3; None
     # for v1 stores (K1 rebuilds them from pos_blocks/uv)
     dt: np.ndarray | None = None
+    index: int | None = None  # the batch's index in its store (TiledStore.load)
 
     @property
     def dfs_arrays(self):
@@ -152,6 +154,7 @@ class StoredV3Batch:
     leaf_nb: int = 0  # scatter target length (store batch_size)
     # host.npz path backing the lazy DFS-tail fields (leaf-baked loads)
     host_path: str | None = None
+    index: int | None = None  # the batch's index in its store (TiledStore.load)
 
     def ensure_host_fields(self) -> None:
         """Materialize the lazily-skipped DFS-tail fields from host.npz."""
@@ -788,11 +791,18 @@ class TiledStore:
     def names(self) -> list[str]:
         return [str(n) for n in np.load(self.path / "names.npy")]
 
-    def load(self, bi: int, mmap: bool = True) -> StoredBatch | None:
-        """Load batch `bi`; None for a batch with no scoreable ligands.
+    def load(self, bi: int, mmap: bool = True) -> StoredBatch | StoredV3Batch:
+        """Load batch `bi` (`empty` where it has no scoreable ligand).
         The big device arrays are memory-mapped (mmap=True, read-only):
         hot page cache makes a repeat screen disk-free; the screener
-        copies each mapped array out before it goes to the device."""
+        copies each mapped array out before it goes to the device. Span
+        `pmnet.store.load`."""
+        with profiling.span("pmnet.store.load", batch=bi):
+            batch = self._load(bi, mmap)
+        batch.index = bi
+        return batch
+
+    def _load(self, bi: int, mmap: bool):
         bdir = self.path / "batches" / f"{bi:05d}"
         host = np.load(bdir / "host.npz")
         if self.meta["version"] == 3:
@@ -841,7 +851,8 @@ class TiledStore:
         Here a worker thread loads (and explicitly pages in) up to
         ``prefetch`` batches ahead, overlapping disk I/O with the kernels
         and the host tail of the current batch. Order and content are
-        identical to calling ``load`` per index (tests pin it)."""
+        identical to calling ``load`` per index (tests pin it). Spans
+        `pmnet.store.page_in` (worker) and `pmnet.store.wait` (consumer)."""
         import queue
         import threading
 
@@ -868,7 +879,8 @@ class TiledStore:
                     if stop.is_set():
                         return
                     b = self.load(bi, mmap=mmap)
-                    _page_in(b)
+                    with profiling.span("pmnet.store.page_in", batch=bi):
+                        _page_in(b)
                     if not put((bi, b)):
                         return
                 put(None)
@@ -878,8 +890,9 @@ class TiledStore:
         t = threading.Thread(target=worker, daemon=True, name="tile-prefetch")
         t.start()
         try:
-            while True:
-                item = q.get()
+            for bi in [*indices, None]:  # None: the worker's end marker
+                with profiling.span("pmnet.store.wait", batch=bi):
+                    item = q.get()
                 if item is None:
                     break
                 if isinstance(item, BaseException):

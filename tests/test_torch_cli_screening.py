@@ -236,3 +236,35 @@ def test_mesh_branch_library_tiles(inputs, tmp_path, mesh3):
     assert dict(resumed) == full and len(resumed) == len(full)
     assert [s for _, s in resumed] == sorted(full.values(), reverse=True)
     assert not partial.exists()
+
+
+def test_profile_writes_the_trace_and_the_spans(inputs, tmp_path):
+    """--profile DIR on --library_tiles: the CSV equals a screen without
+    it, and DIR holds one Chrome trace with the program's pmnet.* spans
+    and, beside it, the spans and counters as JSON: one pmnet.dispatch
+    per batch, its copy-out and pageable copy under it."""
+    import json
+
+    from pharmaconet_tpu_torch.cli import prepack as t_prepack
+
+    tiles = tmp_path / "tiles"
+    assert t_prepack.main(t_prepack.build_parser().parse_args(
+        ["--library", str(inputs / "lib.npz"), "-p", str(inputs / "model.pm"), "--tiles_out",
+         str(tiles), "--batch_size", "8", "--device", "cpu"])) == 0
+    common = ["-p", str(inputs / "model.pm"), "--library_tiles", str(tiles)]
+    assert t_cli.main(_port_args(*common, "-o", str(tmp_path / "plain.csv"))) == 0
+    assert t_cli.main(_port_args(*common, "-o", str(tmp_path / "prof.csv"), "--profile",
+                                 str(tmp_path / "trace"))) == 0
+    assert (tmp_path / "prof.csv").read_text() == (tmp_path / "plain.csv").read_text()
+    traces = list((tmp_path / "trace").glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert sum(e.get("name") == "pmnet.dispatch" for e in events) == 5  # 40 ligands, batches of 8
+    written = json.loads(traces[0].with_name(
+        traces[0].name.replace(".pt.trace.json", ".pmnet.json")).read_text())
+    spans = written["spans"]
+    dispatch = {s["id"]: s["bi"] for s in spans if s["name"] == "pmnet.dispatch"}
+    assert sorted(dispatch.values()) == list(range(5))
+    copies = [s for s in spans if s["name"] in ("pmnet.dispatch.copy_out", "pmnet.dispatch.h2d")]
+    assert copies and all(dispatch[s["parent"]] == s["bi"] for s in copies)
+    assert written["counts"]["pmnet.h2d_bytes"] >= written["counts"]["pmnet.copy_out_bytes"] > 0
