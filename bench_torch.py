@@ -271,7 +271,7 @@ def _v3_leaf_engine(pm, ligands, device, work, layout, wire, screener) -> Engine
     write_v3_store(work, pm, ligands, [f"l{i}" for i in range(n)], batch_size=n,
                    verbose=False, leaf_layout=layout, leaf_wire=wire, device=str(device))
     sb = TiledStore(work, pm).load(0)
-    dev = screener._to_device  # copies each read-only store mapping out first
+    dev = screener._to_device  # stages each read-only store mapping on a card
     k2 = tuple(dev(a) for a in (sb.dt, sb.gid, sb.tab, sb.aux))
     kw = dict(depth=sb.depth, mn_cap=sb.mn_cap)
     out_ends = dev(sb.leaf2_out_ends)

@@ -6,9 +6,9 @@ measured in turns in one process.
         [--stores DIR] [--copies 9] [--device cuda]
 
   T  the host-to-device copy of the stored batch's operand tree, array by
-     array the way `BatchScreener._to_device` copies it (a read-only store
-     mapping copied out first, then a copy from pageable memory),
-     synchronised: host-clock median of --copies rounds, the wires in
+     array the way `BatchScreener._to_device` copies it (on a card each
+     read-only store mapping written into the screener's page-locked ring,
+     then copied from it; on the CPU copied out first), synchronised: host-clock median of --copies rounds, the wires in
      turns after one warm-up round, and MB/s. Beside it, printed only, the
      same arrays copied from pinned memory (`non_blocking`; the staging
      into pinned buffers is not timed). Nothing in `scoring/` changes.

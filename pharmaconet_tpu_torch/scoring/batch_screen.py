@@ -40,6 +40,7 @@ from ..constants import DEFAULT_WEIGHTS, MAX_MATCH_DEPTH
 from ..device import resolve_device
 from ..ops import screen_cuda
 from ..utils import profiling
+from . import staging
 from .graph_match import priority_fn
 from .ligand import Ligand
 from .tree import ClusterMatchTreeRoot
@@ -976,6 +977,11 @@ class BatchScreener:
             torch.cuda.current_stream(self.device)
             if self.device.type == "cuda" else None
         )
+        # page-locked ring for the read-only arrays copied to the card
+        self._staging = (
+            staging.PinnedStaging(self.device, self.stream, threads=pack_threads)
+            if self.stream is not None else None
+        )
         self._rows_hint: float = 600.0  # running rows-per-ligand estimate
         self._pack_buffers: dict = {}  # reused tiled-pack output arrays
 
@@ -985,13 +991,24 @@ class BatchScreener:
         return self.engine == "tiled" and self.fused and self.native_pack
 
     def _to_device(self, a: np.ndarray, dtype: torch.dtype | None = None) -> torch.Tensor:
-        """Host array -> tensor on the screener's device. The copy from
-        pageable host memory has finished reading `a` when this returns, so
-        a pack buffer may be reused as soon as the launch is queued. Spans
-        `pmnet.dispatch.copy_out` and `pmnet.dispatch.h2d`, counters
-        `pmnet.copy_out_bytes` and `pmnet.h2d_bytes`."""
+        """Host array -> tensor on the screener's device. `a` has been read
+        in full when this returns, so a pack buffer may be reused as soon
+        as the launch is queued. On a card a read-only array (a store
+        mapping) is staged (`staging.stages`): span
+        `pmnet.dispatch.copy_out` times the memcpy from the mapping into
+        the screener's page-locked ring and `pmnet.dispatch.h2d` the copy
+        queued on its stream, which runs on behind the return (counter
+        `pmnet.h2d_staged_bytes`). Any other array is copied from pageable
+        memory, a read-only one (on the CPU) first copied out with
+        `np.array` (`pmnet.dispatch.copy_out`), and `pmnet.dispatch.h2d`
+        times the copy to the device. Counters `pmnet.copy_out_bytes`
+        (read-only arrays) and `pmnet.h2d_bytes` (every array)."""
         a = np.asarray(a)
-        if not a.flags.writeable:  # a read-only store mapping: copy it out
+        if staging.stages(a, self.device):
+            t = self._staging.to_device(a, dtype)
+            profiling.count("pmnet.h2d_bytes", a.nbytes)
+            return t
+        if not a.flags.writeable:  # a read-only array: copy it out
             with profiling.span("pmnet.dispatch.copy_out"):
                 a = np.array(a)
             profiling.count("pmnet.copy_out_bytes", a.nbytes)
